@@ -8,35 +8,64 @@
 // (diag (B, N, 54, 54), lower (B, 3, N, 54, 54) with lower[:, k-1, t] =
 // H[t+k, t], rhs (B, N, 54)).
 //
-// Design. One thread block per system; a loop over frames inside the block
-// takes the place of the TPU's sequential grid. Frame t of the forward pass:
-//   for j = 3..1:  L[t,t-j] = (H[t,t-j] - sum_{k>j} L[t,t-k] L[t-j,t-k]^T)
-//                             L[t-j,t-j]^-T
-//   L[t,t] = chol(H[t,t] - sum_j L[t,t-j] L[t,t-j]^T)
-//   y[t]   = L[t,t]^-1 (b[t] - sum_j L[t,t-j] y[t-j])
-// and the backward pass x[t] = L[t,t]^-T (y[t] - sum_j L[t+j,t]^T x[t+j]).
-// Blocks stay 54 wide (the TPU kernel's 64-lane pad was a tiling need). The
-// last four factor rows (the current one and the 3-deep window it reads)
-// live in dynamic shared memory, 16 blocks with an odd row stride of 55
-// floats so that column walks are free of bank conflicts (~190 KB, above
-// the 48 KB static limit, hence cudaFuncSetAttribute). Every factor row also
-// goes to a global scratch buffer that the backward pass reads.
+// Algorithm: the sequential block-banded Cholesky of the TPU kernel and of
+// ops/cuda_banded.solve_reference, with each diagonal factor L[t,t] kept as
+// its inverse X[t] = L[t,t]^-1. Frame t of the forward pass:
+//   for j = 3..1:  M_j    = H[t,t-j] - sum_{k>j} L[t,t-k] L[t-j,t-k]^T
+//                  L[t,t-j] = M_j X[t-j]^T                  (a product)
+//   S      = H[t,t] - sum_j L[t,t-j] L[t,t-j]^T
+//   X[t]   = chol(S)^-1                   (blocked, 18-wide panels, below)
+//   y[t]   = X[t] (b[t] - sum_j L[t,t-j] y[t-j])             (a matvec)
+// and the backward pass x[t] = X[t]^T (y[t] - sum_j L[t+j,t]^T x[t+j]).
+// ops/cuda_banded.solve_reference_blocked is the plain twin of exactly this
+// order of operations.
 //
-// Arithmetic is plain float32 FMA: no tensor cores, no TF32, sqrtf, and
-// each pivot's reciprocal once with the correctly rounded __frcp_rn (build
-// without --use_fast_math). Dividing by the pivot per element instead was
-// measured 2.5x slower on the H100: every float32 division carries a
-// slow-path check and call. A non-positive (or NaN) pivot
-// makes that system's whole solution NaN, like the torch scan path
-// (cholesky_ex + NaN), so the LM driver rejects the step and raises the
-// damping. The TPU kernel clamped the pivot at 1e-30 instead.
+// What bounds it: latency. The frames run in sequence and one thread block
+// owns one system, so B = 10 to 30 blocks use 10 to 30 of the 132 SMs; the
+// work is ~3 MFLOP per frame. A plain substitution makes every frame a chain
+// of ~270 dependent steps (54 pivots, three 54-step triangular solves, two
+// 54-step substitutions). This design shortens the chain:
+//  * Triangular solves become products with X[t-j]: 54x54x54 register-tiled
+//    FMA products over all eight warps (6x6 tiles, the m range in three
+//    slices, 8-byte operand loads); the symmetric Schur update skips the
+//    blocks above the diagonal.
+//  * The Cholesky is blocked by 18-wide panels: one warp factors and inverts
+//    each 18x18 diagonal block in registers with shuffles and no branch or
+//    block barrier; warps form the panel below it (S_ip X_pp^T), the
+//    trailing update and the off-diagonal blocks of X as 18x18x18 products,
+//    one or two warps per product. About 16 block barriers per frame
+//    instead of ~110.
+//  * The next frame's four input blocks (46.7 KB) are copied with cp.async
+//    into their staging buffers while the current frame factors its
+//    diagonal block, so no frame waits for device memory; the backward pass
+//    prefetches its four factor blocks the same way.
+// What is left on the chain (PERF.md, phase probe): the 54 pivot steps of
+// the three panels, each a shuffle, the reciprocal and two FMAs, and the
+// products, which run at a few percent of the FMA rate because each phase
+// is short. Working ahead on frame t+1 while one warp factors frame t is
+// the next lever.
+// Shared memory keeps what later frames read: the staged row t, L[t,t-1]
+// and L[t,t-2] of rows t..t-2, X of rows t..t-2, a second diagonal buffer
+// for the prefetch, and the products' partial sums (18 dense 54x54 blocks,
+// ~212 KB of dynamic shared memory, hence cudaFuncSetAttribute). Every
+// factor row (L[t,t-j] and X[t]) also goes to a global scratch buffer that
+// the backward pass reads.
 //
-// What bounds it: latency. Each frame has 54 dependent pivot steps in the
-// Cholesky plus three 54-step triangular solves, the frames run in sequence,
-// and the only parallelism across the card is one block per system (B = 10
-// to 30 on 132 SMs). Making it fast is later work: several systems per SM,
-// wgmma for the block products, and a parallel-in-time cyclic-reduction
-// variant.
+// Arithmetic is plain float32 FMA: no tensor cores, no TF32. The work is
+// ~1.5 GFLOP per call and latency-bound, so wgmma is not the lever, and TF32
+// would break the 7e-4 accuracy bar. sqrtf and one correctly rounded
+// reciprocal per pivot (__frcp_rn; build without --use_fast_math): a float32
+// division per element carries a slow-path check and call. The explicit
+// inverse keeps the normwise backward error of a substitution (~1e-7 on the
+// solver's Jacobi-scaled systems, ops/cuda_banded.py). A non-positive (or
+// NaN) pivot makes that system's whole solution NaN, like the torch scan
+// path (cholesky_ex + NaN), so the LM driver rejects the step and raises the
+// damping; the other systems are untouched. The TPU kernel clamped the pivot
+// at 1e-30 instead.
+//
+// Built with -DBANDED_PHASE_PROBE (ops/banded_probe.py, never the main
+// path), thread 0 adds the clock64 cycles of each phase into a per-system
+// probe buffer.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -44,258 +73,630 @@
 namespace {
 
 constexpr int D = 54;                  // block size
-constexpr int LD = 55;                 // shared-memory row stride
-constexpr int BLK = D * LD;            // floats per shared block
+constexpr int P = 18;                  // panel width of the blocked Cholesky
+constexpr int DD = D * D;              // floats per dense block
 constexpr int BW = 3;                  // bandwidth
-constexpr int RING = 4;                // rows t, t-1, t-2, t-3
-constexpr int VPAD = 64;               // padded vector length
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int RPW = (D + WARPS - 1) / WARPS;   // rows per warp in a TRSM
-constexpr size_t DD = (size_t)D * D;
+constexpr int VP = 64;                 // padded vector length
+constexpr int NBLK = 18;               // dense blocks in shared memory
+constexpr int TS = P * P;              // floats per 18x18 scratch block
 constexpr size_t SMEM_BYTES =
-    sizeof(float) * ((size_t)RING * (BW + 1) * BLK + RING * VPAD);
+    sizeof(float) * ((size_t)NBLK * DD + 3 * TS + 13 * VP);
 
-// shared block `which` (0..2 = L[t, t-1-which], 3 = L[t, t]) of row t
-__device__ __forceinline__ float* row_block(float* ring, int t, int which) {
-  return ring + ((t & (RING - 1)) * (BW + 1) + which) * BLK;
+// shared block indices
+constexpr int B_HS = 0;   // 3: staged H[t,t-1..3] (M_j in place)
+constexpr int B_HD = 3;   // 2: H[t,t] -> S, double-buffered by frame parity
+constexpr int B_LO = 5;   // 6: L[t,t-1], L[t,t-2] of rows t%3 (ring of 3)
+constexpr int B_L3 = 11;  // 1: L[t,t-3]
+constexpr int B_XR = 12;  // 3: X[t] = L[t,t]^-1 of rows t%3 (ring of 3)
+constexpr int B_LT = 15;  // 1: off-diagonal panels of L[t,t]
+constexpr int B_R = 16;   // 2: partial sums of big_nt
+
+#ifdef BANDED_PHASE_PROBE
+constexpr int NPROBE = 15;
+enum { PR_LOAD, PR_OFFDIAG, PR_TRSM, PR_SCHUR, PR_CHOL, PR_PANEL, PR_FWD,
+       PR_BWD, PR_CHOL_PIVOTS, PR_CHOL_SCALE, PR_CHOL_INV, PR_CHOL_STORE,
+       PR_BIG_LOOP, PR_BIG_BARRIER, PR_BIG_EPILOGUE };
+// cycles of the steps inside chol_inv_panel and big_nt (thread 0)
+__shared__ long long prb_sub[7];
+#define SUB_PROBE(k)                                              \
+  do {                                                             \
+    if (threadIdx.x == 0) {                                        \
+      const long long c_ = clock64();                              \
+      prb_sub[k] += c_ - t_;                                      \
+      t_ = c_;                                                     \
+    }                                                              \
+  } while (0)
+#define SUB_PROBE_START() long long t_ = clock64()
+#define PROBE(k)                                                   \
+  do {                                                             \
+    if (threadIdx.x == 0) {                                        \
+      const long long c_ = clock64();                              \
+      prb[k] += c_ - last;                                         \
+      last = c_;                                                   \
+    }                                                              \
+  } while (0)
+#else
+#define PROBE(k) \
+  do {           \
+  } while (0)
+#define SUB_PROBE(k) \
+  do {                \
+  } while (0)
+#define SUB_PROBE_START() \
+  do {                     \
+  } while (0)
+#endif
+
+__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
+
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(g));
 }
 
-__device__ void load_block(float* s, const float* g) {
-  for (int e = threadIdx.x; e < D * D; e += THREADS)
-    s[(e / D) * LD + e % D] = g[e];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ void store_block(float* g, const float* s) {
-  for (int e = threadIdx.x; e < D * D; e += THREADS)
-    g[e] = s[(e / D) * LD + e % D];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// C -= sum_p A_p B_p^T over n terms; 2x3 register tiles (27 x 18 of them)
-__device__ void gemm_nt_sub(float* C, const float* A0, const float* B0,
-                            const float* A1, const float* B1,
-                            const float* A2, const float* B2, int n) {
-  for (int tile = threadIdx.x; tile < 27 * 18; tile += THREADS) {
-    const int i0 = (tile / 18) * 2, k0 = (tile % 18) * 3;
-    float acc[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+// start copying one dense 54x54 block (11,664 bytes = 729 16-byte chunks)
+__device__ __forceinline__ void copy_block_async(float* s, const float* g) {
+  for (int e = threadIdx.x; e < DD / 4; e += THREADS)
+    cp_async16(s + 4 * e, g + 4 * e);
+}
+
+// C = A0 B0^T (sub = false) or C -= sum_{p<n} A_p B_p^T (sub = true), all
+// 54x54 dense. Every thread takes part (the function holds a block
+// barrier). Threads 0..242 own a 6x6 register tile (rows it + 9r, columns
+// kt + 9c) of one third of the m range (slice = tid / 81), so all eight
+// warps, two on each scheduler, share the FMAs, and each tile's 12 operand
+// loads feed 36 FMAs; operands are read two m at a time (8-byte loads: the
+// row stride 54 is even). Each slice then owns a third of the tile's rows:
+// the two other slices leave their partial sums of those rows in R (two
+// blocks), and the owner adds the three in slice order and writes C, and Cg
+// (global, dense) when it is not null. A tile's (r, c) entries make up the
+// 9x9 block (r, c) of C; with kLower (the symmetric Schur update, whose
+// upper blocks nothing reads) the blocks above the diagonal are skipped.
+template <bool kLower>
+__device__ void big_nt(float* C, float* Cg, bool sub, int n, const float* A0,
+                       const float* B0, const float* A1, const float* B1,
+                       const float* A2, const float* B2, float* R) {
+  const int tid = threadIdx.x;
+  SUB_PROBE_START();
+  const int slice = tid / 81, tile = tid % 81, it = tile / 9, kt = tile % 9;
+  float acc[6][6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[r][c] = 0.f;
+  if (slice < 3) {
     for (int p = 0; p < n; ++p) {
-      const float* a = p == 0 ? A0 : (p == 1 ? A1 : A2);
-      const float* b = p == 0 ? B0 : (p == 1 ? B1 : B2);
-      for (int m = 0; m < D; ++m) {
-        const float a0 = a[i0 * LD + m], a1 = a[(i0 + 1) * LD + m];
-        const float b0 = b[k0 * LD + m], b1 = b[(k0 + 1) * LD + m],
-                    b2 = b[(k0 + 2) * LD + m];
-        acc[0][0] = fmaf(a0, b0, acc[0][0]);
-        acc[0][1] = fmaf(a0, b1, acc[0][1]);
-        acc[0][2] = fmaf(a0, b2, acc[0][2]);
-        acc[1][0] = fmaf(a1, b0, acc[1][0]);
-        acc[1][1] = fmaf(a1, b1, acc[1][1]);
-        acc[1][2] = fmaf(a1, b2, acc[1][2]);
+      const float* a = (p == 0 ? A0 : (p == 1 ? A1 : A2)) + it * D + 18 * slice;
+      const float* b = (p == 0 ? B0 : (p == 1 ? B1 : B2)) + kt * D + 18 * slice;
+#pragma unroll 1
+      for (int m = 0; m < 18; m += 2) {
+        float2 av[6], bv[6];
+#pragma unroll
+        for (int r = 0; r < 6; ++r)
+          av[r] = *reinterpret_cast<const float2*>(a + r * 9 * D + m);
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          bv[c] = *reinterpret_cast<const float2*>(b + c * 9 * D + m);
+#pragma unroll
+        for (int r = 0; r < 6; ++r)
+#pragma unroll
+          for (int c = 0; c < 6; ++c) {
+            if (kLower && c > r) continue;
+            acc[r][c] = fmaf(av[r].x, bv[c].x, acc[r][c]);
+            acc[r][c] = fmaf(av[r].y, bv[c].y, acc[r][c]);
+          }
       }
     }
+  }
+  // slice s owns rows 2s, 2s+1 of each tile; the two other slices leave
+  // their partial sums of those rows in R, the lower-numbered one in the
+  // first block, and the owner adds the three in slice order
+  if (slice < 3) {
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      const int owner = r / 2;
+      if (owner == slice) continue;
+      float* Rs = R + (slice - (owner < slice ? 1 : 0)) * DD;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) Rs[(it + 9 * r) * D + kt + 9 * c] = acc[r][c];
+    }
+  }
+  SUB_PROBE(4);
+  __syncthreads();
+  SUB_PROBE(5);
+  if (slice < 3) {
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      if (r / 2 != slice) continue;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const int e = (it + 9 * r) * D + kt + 9 * c;
+        const float p0 = R[e], p1 = R[DD + e];       // the other two slices
+        const float t = slice == 0 ? (acc[r][c] + p0) + p1
+                      : slice == 1 ? (p0 + acc[r][c]) + p1
+                                   : (p0 + p1) + acc[r][c];
+        const float v = sub ? C[e] - t : t;
+        C[e] = v;
+        if (Cg) Cg[e] = v;
+      }
+    }
+  }
+  SUB_PROBE(6);
+}
+
+// Work ahead on row t+1 while warp 0 factors row t's diagonal block: C =
+// A B^T (sub = false) or C -= A B^T (sub = true), 54x54 dense, by warps
+// 1-3 and 5-7 alone, without a block barrier: 162 threads each own a 3x6
+// register tile (rows it + 18r, columns kt + 9c; a warp's loads of B hit 9 distinct
+// bank pairs), operands read two m at a time. The result also goes to Cg
+// (global, dense) when it is not null.
+__device__ void ahead_nt(float* C, float* Cg, bool sub, const float* A,
+                         const float* B) {
+  // warps 1-3 and 5-7: warp 4 shares warp 0's scheduler and stays idle
+  const int w = threadIdx.x / 32;
+  const int tid = threadIdx.x - (w < 4 ? 32 : 64);
+  if (w == 0 || w == 4 || tid >= 162) return;
+  const int it = tid / 9, kt = tid % 9;
+  float acc[3][6];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[r][c] = 0.f;
+  const float* a = A + it * D;
+  const float* b = B + kt * D;
+#pragma unroll 3
+  for (int m = 0; m < D; m += 2) {
+    float2 av[3], bv[6];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      av[r] = *reinterpret_cast<const float2*>(a + r * P * D + m);
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      bv[c] = *reinterpret_cast<const float2*>(b + c * 9 * D + m);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        acc[r][c] = fmaf(av[r].x, bv[c].x, acc[r][c]);
+        acc[r][c] = fmaf(av[r].y, bv[c].y, acc[r][c]);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const int e = (it + P * r) * D + kt + 9 * c;
+      const float v = sub ? C[e] - acc[r][c] : acc[r][c];
+      C[e] = v;
+      if (Cg) Cg[e] = v;
+    }
+}
+
+// One 18x18x18 product: C {=, -=, +=, = -} A op(B), op(B) = B^T (nt) or B.
+// Strides in floats; Cg (global, stride D) optional.
+enum { SJ_SET, SJ_SUB, SJ_ADD, SJ_NEG };
+struct SmallJob {
+  float* C;
+  const float* A;
+  const float* B;
+  float* Cg;
+  int ldc, lda, ldb;
+  int nt, mode;
+};
+
+// One warp runs one small job (kParts = 1), or one of two warps runs half
+// of it (kParts = 2, part 0 or 1): lanes 0..26 each own a 2x6 tile (rows
+// ti + 9r, columns tk + 3c), or its columns c = 3 part .. 3 part + 2. A
+// phase gives each warp its own job, so no warp diverges between jobs.
+template <int kParts>
+__device__ void small_job(const SmallJob J, int part) {
+  constexpr int NC = 6 / kParts;
+  const int lane = threadIdx.x & 31;
+  if (lane >= 27) return;
+  const int ti = lane / 3, tk = lane % 3;
+  float acc[2][NC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  const float* a = J.A + ti * J.lda;
+  const int bs = J.nt ? J.ldb : 1, bm = J.nt ? 1 : J.ldb;   // B[k][m] steps
+  const float* b = J.B + (tk + 3 * NC * part) * bs;
+#pragma unroll 6
+  for (int m = 0; m < P; ++m) {
+    float av[2], bv[NC];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) av[r] = a[9 * r * J.lda + m];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) bv[c] = b[3 * c * bs + m * bm];
+#pragma unroll
     for (int r = 0; r < 2; ++r)
-      for (int c = 0; c < 3; ++c) C[(i0 + r) * LD + k0 + c] -= acc[r][c];
-  }
-}
-
-// In-place lower Cholesky of the shared block S, right-looking on the
-// unscaled column with one block barrier per pivot: warp w updates rows
-// c+1+w, c+9+w, ..., its lanes the columns of each row. Then all threads
-// scale the columns and zero the strict upper triangle. A failed pivot sets
-// *bad and propagates NaN.
-__device__ void chol_inplace(float* S, int* bad) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c = 0; c < D; ++c) {
-    const float p = S[c * LD + c];
-    const float inv = p > 0.f ? __frcp_rn(p) : __int_as_float(0x7fc00000);
-    if (threadIdx.x == 0 && !(p > 0.f)) *bad = 1;
-    for (int r = c + 1 + warp; r < D; r += WARPS) {
-      const float a = S[r * LD + c] * inv;
-      for (int k = c + 1 + lane; k <= r; k += 32)
-        S[r * LD + k] = fmaf(-a, S[k * LD + c], S[r * LD + k]);
-    }
-    __syncthreads();
-  }
-  // scale: L[r][c] = S[r][c] / sqrt(S[c][c]); zero the strict upper part
-  for (int e = threadIdx.x; e < D * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    if (c > r) S[r * LD + c] = 0.f;
-    else if (c < r) S[r * LD + c] *= __frcp_rn(sqrtf(S[c * LD + c]));
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += THREADS) S[c * LD + c] = sqrtf(S[c * LD + c]);
-  __syncthreads();
-}
-
-// X <- X L^-T for the nrows rows of X (row stride ldx), L lower-triangular
-// in shared memory: each row is a forward substitution L x = row^T, one warp
-// per row, lanes holding columns lane and lane + 32, the solved entry
-// broadcast by shuffle.
-__device__ void trsm_rows(float* X, int ldx, int nrows, const float* L) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp >= nrows) return;
-  float v0[RPW], v1[RPW];
 #pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-    const int r = warp + q * WARPS;
-    const bool ok = r < nrows;
-    v0[q] = ok ? X[r * ldx + lane] : 0.f;
-    v1[q] = (ok && lane + 32 < D) ? X[r * ldx + lane + 32] : 0.f;
-  }
-  for (int c = 0; c < D; ++c) {
-    const float rinv = __frcp_rn(L[c * LD + c]);
-    const float l0 = lane > c ? L[lane * LD + c] : 0.f;
-    const float l1 = (lane + 32 > c && lane + 32 < D) ? L[(lane + 32) * LD + c]
-                                                      : 0.f;
-#pragma unroll
-    for (int q = 0; q < RPW; ++q) {
-      const float own = c < 32 ? v0[q] : v1[q];
-      const float xc = __shfl_sync(0xffffffffu, own, c & 31) * rinv;
-      if (lane == (c & 31)) {
-        if (c < 32) v0[q] = xc; else v1[q] = xc;
-      }
-      v0[q] = fmaf(-xc, l0, v0[q]);
-      v1[q] = fmaf(-xc, l1, v1[q]);
-    }
+      for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
   }
 #pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-    const int r = warp + q * WARPS;
-    if (r < nrows) {
-      X[r * ldx + lane] = v0[q];
-      if (lane + 32 < D) X[r * ldx + lane + 32] = v1[q];
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = ti + 9 * r, k = tk + 3 * (c + NC * part);
+      float* cp = J.C + i * J.ldc + k;
+      const float old = *cp, t = acc[r][c];
+      const float v = J.mode == SJ_SUB ? old - t
+                    : J.mode == SJ_ADD ? old + t
+                    : J.mode == SJ_NEG ? -t : t;
+      *cp = v;
+      if (J.Cg) J.Cg[i * D + k] = v;
     }
-  }
 }
 
-// v <- L^-T v (backward substitution with the transpose), one warp
-__device__ void trsv_t(float* v, const float* L) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  float v0 = v[lane], v1 = lane + 32 < D ? v[lane + 32] : 0.f;
-  for (int c = D - 1; c >= 0; --c) {
-    const float own = c < 32 ? v0 : v1;
-    const float xc = __shfl_sync(0xffffffffu, own, c & 31) *
-                     __frcp_rn(L[c * LD + c]);
-    if (lane == (c & 31)) {
-      if (c < 32) v0 = xc; else v1 = xc;
-    }
-    const float l0 = lane < c ? L[c * LD + lane] : 0.f;
-    const float l1 = lane + 32 < c ? L[c * LD + lane + 32] : 0.f;
-    v0 = fmaf(-xc, l0, v0);
-    v1 = fmaf(-xc, l1, v1);
+// One warp: Cholesky of the 18x18 diagonal block S (stride D, lower part
+// read) and its inverse. Lane r holds row r in registers. The pivot chain
+// is right-looking on the unscaled columns: pivot c is broadcast by
+// shuffle, its reciprocal taken once (__frcp_rn), and row r's trailing
+// entries take a[r][k] -= (a[r][c] / p_c) a[k][c], with a[k][c] shuffled
+// before the reciprocal is ready, so a step's dependent chain is one
+// shuffle, the reciprocal and two FMAs. After the chain, lane c alone takes
+// the square root 1/sqrt(p_c) = sqrt(1/p_c) and L[c][c] = p_c / sqrt(p_c),
+// and shuffles the former to the lanes that scale column c (L[r][c] =
+// a[r][c] / sqrt(p_c)): one square root per lane instead of eighteen
+// special-function sequences in a row. L goes back into S; lane j then
+// forms column j of X = L^-1 by a right-looking substitution against the
+// broadcast L[m][i], and writes it to X (stride D, zeros above the
+// diagonal) and Xg (global). A failed pivot sets *bad.
+__device__ __noinline__ void chol_inv_panel(float* S, float* X, float* Xg,
+                                            int* bad) {
+  const int lane = threadIdx.x & 31;
+  SUB_PROBE_START();
+  float a[P];
+#pragma unroll
+  for (int c = 0; c < P; ++c)
+    a[c] = (lane < P && c <= lane) ? S[lane * D + c] : 0.f;
+  bool ok = true;
+  float my_piv = 0.f, my_inv = 0.f;        // lane c's pivot and 1/pivot
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+    const float piv = __shfl_sync(0xffffffffu, a[c], c);
+    float u[P];
+#pragma unroll
+    for (int k = c + 1; k < P; ++k) u[k] = __shfl_sync(0xffffffffu, a[c], k);
+    ok = ok && piv > 0.f;
+    const float inv = piv > 0.f ? __frcp_rn(piv) : qnan();
+    my_piv = lane == c ? piv : my_piv;
+    my_inv = lane == c ? inv : my_inv;
+    // every entry right of column c takes the update: those above the
+    // diagonal (k > lane) and the rows of lanes >= P are never read, and
+    // updating them all keeps the loop free of predicates and branches
+    const float l = a[c] * inv;
+#pragma unroll
+    for (int k = c + 1; k < P; ++k) a[k] = fmaf(-l, u[k], a[k]);
   }
-  v[lane] = v0;
-  if (lane + 32 < D) v[lane + 32] = v1;
+  if (!ok && lane == 0) *bad = 1;
+  SUB_PROBE(0);
+  const float my_rs = sqrtf(my_inv);       // 1 / L[lane][lane]
+  float rinv[P];
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+    rinv[c] = __shfl_sync(0xffffffffu, my_rs, c);
+    a[c] = c == lane ? my_piv * my_rs : a[c] * rinv[c];
+  }
+  if (lane < P) {                          // row lane of L (and garbage
+#pragma unroll                             // above the diagonal, unread)
+    for (int c = 0; c < P; ++c) S[lane * D + c] = a[c];
+  }
+  __syncwarp();
+  SUB_PROBE(1);
+  float x[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) x[i] = i == lane ? 1.f : 0.f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    x[i] *= rinv[i];
+#pragma unroll
+    for (int m = i + 1; m < P; ++m) x[m] = fmaf(-S[m * D + i], x[i], x[m]);
+  }
+  SUB_PROBE(2);
+  if (lane < P) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      X[i * D + lane] = x[i];
+      Xg[i * D + lane] = x[i];
+    }
+  }
+  SUB_PROBE(3);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
 banded_solve_kernel(const float* __restrict__ diag,
                     const float* __restrict__ lower,
                     const float* __restrict__ rhs, float* x, float* work,
-                    int N) {
-  extern __shared__ float smem[];
-  float* ring = smem;                                 // RING*(BW+1) blocks
-  float* vring = ring + RING * (BW + 1) * BLK;        // RING vectors
+                    long long* probe, int N) {
+  extern __shared__ __align__(16) float smem[];
+  float* blk = smem;                                  // NBLK dense blocks
+  float* T = blk + NBLK * DD;                         // 3 18x18 scratch
+  float* yring = T + 3 * TS;                          // 4 vectors
+  float* xring = yring + 4 * VP;                      // 4 vectors
+  float* part = xring + 4 * VP;                       // 4 partial sums
+  float* sv = part + 4 * VP;                          // 1 vector
   __shared__ int bad;
-  const int tid = threadIdx.x;
+#ifdef BANDED_PHASE_PROBE
+  __shared__ long long prb[NPROBE];
+  long long last = clock64();
+  if (threadIdx.x < NPROBE) prb[threadIdx.x] = 0;
+  if (threadIdx.x < 7) prb_sub[threadIdx.x] = 0;
+#endif
+  const int tid = threadIdx.x, warp = tid / 32;
   const size_t b = blockIdx.x;
   const float* Hd = diag + b * N * DD;
   const float* Hl = lower + b * BW * N * DD;          // [k][t] blocks
   const float* rb = rhs + b * N * D;
   float* xb = x + b * N * D;
-  float* Lg = work + b * N * (BW + 1) * DD;           // [t][which] blocks
+  float* Wg = work + b * N * (BW + 1) * DD;           // [t][L1, L2, L3, X]
+  auto B = [&](int i) { return blk + i * DD; };
   if (tid == 0) bad = 0;
+  // X's strictly upper blocks are never written: zero them once
+  for (int e = tid; e < 3 * DD; e += THREADS) B(B_XR)[e] = 0.f;
+
+  // copy frame t's staged blocks: H[t,t-2], H[t,t-3] and H[t,t] (group 0),
+  // or H[t,t-1] (group 1), each one cp.async group
+  auto prefetch = [&](int t, int group) {
+    const int nb = t < BW ? t : BW;
+    if (group == 0) {
+      for (int j = 2; j <= nb; ++j)
+        copy_block_async(B(B_HS + j - 1),
+                         Hl + ((size_t)(j - 1) * N + (t - j)) * DD);
+      copy_block_async(B(B_HD + (t & 1)), Hd + (size_t)t * DD);
+    } else if (nb >= 1) {
+      copy_block_async(B(B_HS), Hl + (size_t)(t - 1) * DD);
+    }
+    cp_async_commit();
+  };
+  prefetch(0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  PROBE(PR_LOAD);
 
   // ---- forward: factor row t, y[t] -----------------------------------
   for (int t = 0; t < N; ++t) {
     const int nb = t < BW ? t : BW;
-    for (int j = 1; j <= nb; ++j)
-      load_block(row_block(ring, t, j - 1), Hl + ((size_t)(j - 1) * N + (t - j)) * DD);
-    load_block(row_block(ring, t, BW), Hd + (size_t)t * DD);
-    __syncthreads();
-    for (int j = nb; j >= 1; --j) {
-      float* M = row_block(ring, t, j - 1);
-      const int n = nb - j;                           // terms k = j+1..nb
-      if (n > 0) {
-        // M -= L[t, t-k] L[t-j, t-k]^T; L[t-j, t-k] is row t-j, block k-j-1
-        gemm_nt_sub(M, row_block(ring, t, j), row_block(ring, t - j, 0),
-                    n > 1 ? row_block(ring, t, j + 1) : nullptr,
-                    n > 1 ? row_block(ring, t - j, 1) : nullptr,
-                    nullptr, nullptr, n);
-        __syncthreads();
+    float* H1 = B(B_HS);
+    float* H2 = B(B_HS + 1);
+    const float* H3 = B(B_HS + 2);
+    float* S = B(B_HD + (t & 1));
+    float* L1 = B(B_LO + 2 * (t % 3));
+    float* L2 = L1 + DD;
+    float* L3 = B(B_L3);
+    const float* L1p = B(B_LO + 2 * ((t + 2) % 3));   // L[t-1, t-2]
+    const float* L2p = L1p + DD;                      // L[t-1, t-3]
+    const float* X1 = B(B_XR + (t + 2) % 3);          // X[t-1]
+    const float* X2 = B(B_XR + (t + 1) % 3);          // X[t-2]
+    float* Xt = B(B_XR + t % 3);                      // X[t-3], then X[t]
+    float* Lt = B(B_LT);
+    float* R = B(B_R);
+    float* Wt = Wg + (size_t)t * (BW + 1) * DD;
+
+    // row t's L[t,t-3] and L[t,t-2] (and M_2 in H2) were formed ahead,
+    // while frame t-1 factored its diagonal block, so their staging buffers
+    // and frame t-1's diagonal buffer are free: start copying frame t+1's
+    if (t + 1 < N) prefetch(t + 1, 0);
+    if (nb >= 2) {
+      big_nt<false>(H1, nullptr, true, nb - 1, L2, L1p, L3, L2p, nullptr,
+                    nullptr, R);
+      __syncthreads();
+      PROBE(PR_OFFDIAG);
+    }
+    if (nb >= 1) {
+      big_nt<false>(L1, Wt, false, 1, H1, X1, nullptr, nullptr, nullptr,
+                    nullptr, R);
+      __syncthreads();
+      PROBE(PR_TRSM);
+    }
+    // H[t,t-1] is consumed too
+    if (t + 1 < N) prefetch(t + 1, 1);
+    // s = b[t] - sum_j L[t,t-j] y[t-j]: four threads per row, each a
+    // quarter of the columns, summed by two shuffles
+    {
+      const int r = tid / 4, q = tid % 4;
+      const int m0 = q * 14, m1 = m0 + 14 < D ? m0 + 14 : D;
+      float acc = 0.f;
+      if (r < D) {
+        const float* Ls[3] = {L1, L2, L3};
+        for (int j = 1; j <= nb; ++j) {
+          const float* Lr = Ls[j - 1] + r * D;
+          const float* yj = yring + ((t - j) & 3) * VP;
+          for (int m = m0; m < m1; ++m) acc = fmaf(Lr[m], yj[m], acc);
+        }
       }
-      trsm_rows(M, LD, D, row_block(ring, t - j, BW));
-      __syncthreads();
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (r < D && q == 0) sv[r] = rb[(size_t)t * D + r] - acc;
     }
-    float* S = row_block(ring, t, BW);
-    if (nb > 0) {
-      const float* L1 = row_block(ring, t, 0);
-      const float* L2 = nb > 1 ? row_block(ring, t, 1) : nullptr;
-      const float* L3 = nb > 2 ? row_block(ring, t, 2) : nullptr;
-      gemm_nt_sub(S, L1, L1, L2, L2, L3, L3, nb);
-      __syncthreads();
+    // S = H[t,t] - sum_j L_j L_j^T
+    if (nb >= 1)
+      big_nt<true>(S, nullptr, true, nb, L1, L1, L2, L2, L3, L3, R);
+    PROBE(PR_SCHUR);
+    // the work ahead reads H[t+1,t-2] and H[t+1,t-1]: wait for all but the
+    // newest group (H[t+1,t], read in frame t+1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    PROBE(PR_LOAD);
+
+    // ---- X[t] = chol(S)^-1 by 18-wide panels ---------------------------
+    float* Xg = Wt + 3 * DD;
+    float* T10 = T;
+    float* T20 = T + TS;
+    float* T21 = T + 2 * TS;
+#define SB(M, a, c) ((M) + (a) * P * D + (c) * P)
+    // while warp 0 factors, warps 1-7 form row t+1's L[t+1,t-2] (needs
+    // X[t-2]), M_2 = H[t+1,t-1] - L[t+1,t-2] L[t-1,t-2]^T and
+    // L[t+1,t-1] = M_2 X[t-1]^T, one per panel
+    const int nb1 = t + 1 < N ? (t + 1 < BW ? t + 1 : BW) : 0;
+    float* L2n = B(B_LO + 2 * ((t + 1) % 3)) + DD;    // row t+1's L2
+    float* Wn = Wt + (BW + 1) * DD;                   // row t+1's blocks
+    if (warp == 0) chol_inv_panel(SB(S, 0, 0), SB(Xt, 0, 0), SB(Xg, 0, 0), &bad);
+    else if (nb1 == 3) ahead_nt(L3, Wn + 2 * DD, false, H3, X2);
+    __syncthreads();
+    PROBE(PR_CHOL);
+    if (warp < 4)
+      small_job<2>(warp < 2
+          ? SmallJob{SB(Lt, 1, 0), SB(S, 1, 0), SB(Xt, 0, 0), nullptr, D, D, D, 1, SJ_SET}
+          : SmallJob{SB(Lt, 2, 0), SB(S, 2, 0), SB(Xt, 0, 0), nullptr, D, D, D, 1, SJ_SET},
+          warp & 1);
+    __syncthreads();
+    if (warp < 5) {
+      SmallJob J;
+      switch (warp) {
+        case 0: J = {SB(S, 1, 1), SB(Lt, 1, 0), SB(Lt, 1, 0), nullptr, D, D, D, 1, SJ_SUB}; break;
+        case 1: J = {SB(S, 2, 1), SB(Lt, 2, 0), SB(Lt, 1, 0), nullptr, D, D, D, 1, SJ_SUB}; break;
+        case 2: J = {SB(S, 2, 2), SB(Lt, 2, 0), SB(Lt, 2, 0), nullptr, D, D, D, 1, SJ_SUB}; break;
+        case 3: J = {T10, SB(Lt, 1, 0), SB(Xt, 0, 0), nullptr, P, D, D, 0, SJ_SET}; break;
+        default: J = {T20, SB(Lt, 2, 0), SB(Xt, 0, 0), nullptr, P, D, D, 0, SJ_SET};
+      }
+      small_job<1>(J, 0);
     }
-    chol_inplace(S, &bad);
-    float* y = vring + (t & (RING - 1)) * VPAD;
+    __syncthreads();
+    PROBE(PR_PANEL);
+    if (warp == 0) chol_inv_panel(SB(S, 1, 1), SB(Xt, 1, 1), SB(Xg, 1, 1), &bad);
+    else if (nb1 == 3) ahead_nt(H2, nullptr, true, L3, L1p);
+    __syncthreads();
+    PROBE(PR_CHOL);
+    if (warp < 4)
+      small_job<2>(warp < 2
+          ? SmallJob{SB(Lt, 2, 1), SB(S, 2, 1), SB(Xt, 1, 1), nullptr, D, D, D, 1, SJ_SET}
+          : SmallJob{SB(Xt, 1, 0), SB(Xt, 1, 1), T10, SB(Xg, 1, 0), D, D, P, 0, SJ_NEG},
+          warp & 1);
+    __syncthreads();
+    if (warp < 6) {
+      SmallJob J;
+      switch (warp / 2) {
+        case 0: J = {SB(S, 2, 2), SB(Lt, 2, 1), SB(Lt, 2, 1), nullptr, D, D, D, 1, SJ_SUB}; break;
+        case 1: J = {T20, SB(Lt, 2, 1), SB(Xt, 1, 0), nullptr, P, D, D, 0, SJ_ADD}; break;
+        default: J = {T21, SB(Lt, 2, 1), SB(Xt, 1, 1), nullptr, P, D, D, 0, SJ_SET};
+      }
+      small_job<2>(J, warp & 1);
+    }
+    __syncthreads();
+    PROBE(PR_PANEL);
+    if (warp == 0) chol_inv_panel(SB(S, 2, 2), SB(Xt, 2, 2), SB(Xg, 2, 2), &bad);
+    else if (nb1 >= 2) ahead_nt(L2n, Wn + DD, false, H2, X1);
+    __syncthreads();
+    PROBE(PR_CHOL);
+    if (warp < 4)
+      small_job<2>(warp < 2
+          ? SmallJob{SB(Xt, 2, 1), SB(Xt, 2, 2), T21, SB(Xg, 2, 1), D, D, P, 0, SJ_NEG}
+          : SmallJob{SB(Xt, 2, 0), SB(Xt, 2, 2), T20, SB(Xg, 2, 0), D, D, P, 0, SJ_NEG},
+          warp & 1);
+#undef SB
+    __syncthreads();
+    PROBE(PR_PANEL);
+    // y[t] = X[t] s (lower-triangular matvec, one thread per row)
     if (tid < D) {
-      float s = rb[(size_t)t * D + tid];
-      for (int j = 1; j <= nb; ++j) {
-        const float* Lj = row_block(ring, t, j - 1);
-        const float* yj = vring + ((t - j) & (RING - 1)) * VPAD;
-        for (int m = 0; m < D; ++m) s = fmaf(-Lj[tid * LD + m], yj[m], s);
+      const float* Xr = Xt + tid * D;
+      float a0 = 0.f, a1 = 0.f;
+      int m = 0;
+      for (; m + 1 <= tid; m += 2) {
+        a0 = fmaf(Xr[m], sv[m], a0);
+        a1 = fmaf(Xr[m + 1], sv[m + 1], a1);
       }
-      y[tid] = s;
+      if (m <= tid) a0 = fmaf(Xr[m], sv[m], a0);
+      const float y = a0 + a1;
+      yring[(t & 3) * VP + tid] = y;
+      xb[(size_t)t * D + tid] = y;
     }
+    cp_async_wait_all();
     __syncthreads();
-    trsm_rows(y, VPAD, 1, S);
-    __syncthreads();
-    if (tid < D) xb[(size_t)t * D + tid] = y[tid];
-    for (int j = 1; j <= nb; ++j)
-      store_block(Lg + ((size_t)t * (BW + 1) + j - 1) * DD, row_block(ring, t, j - 1));
-    store_block(Lg + ((size_t)t * (BW + 1) + BW) * DD, S);
-    __syncthreads();
+    PROBE(PR_FWD);
   }
 
-  // ---- backward: x[t] = L[t,t]^-T (y[t] - sum_j L[t+j,t]^T x[t+j]) -----
-  float* Ld = ring;
+  // ---- backward: x[t] = X[t]^T (y[t] - sum_j L[t+j,t]^T x[t+j]) --------
+  // the factor rows written above are read back through L2 (cp.async.cg)
+  __threadfence();
+  __syncthreads();
+  // buffers: X[t] in block buf, L[t+j,t] in blocks 2 + 3 buf + j - 1
+  auto prefetch_bwd = [&](int t, int buf) {
+    copy_block_async(B(buf), Wg + ((size_t)t * (BW + 1) + BW) * DD);
+    for (int j = 1; j <= BW && t + j < N; ++j)
+      copy_block_async(B(2 + 3 * buf + j - 1),
+                       Wg + ((size_t)(t + j) * (BW + 1) + j - 1) * DD);
+    cp_async_commit();
+  };
+  prefetch_bwd(N - 1, 0);
+  const int r = tid % D, q = tid / D;               // q < 4: a quarter of i
+  const int i0 = q * 14, i1 = i0 + 14 < D ? i0 + 14 : D;
   for (int t = N - 1; t >= 0; --t) {
-    load_block(Ld, Lg + ((size_t)t * (BW + 1) + BW) * DD);
-    float* v = vring + (t & (RING - 1)) * VPAD;
-    if (tid < D) {
-      float s = xb[(size_t)t * D + tid];              // y[t]
+    const int buf = (N - 1 - t) & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    PROBE(PR_LOAD);
+    if (t > 0) prefetch_bwd(t - 1, buf ^ 1);
+    const float yv = tid < D ? xb[(size_t)t * D + tid] : 0.f;
+    if (q < 4) {
+      float acc = 0.f;
       for (int j = 1; j <= BW && t + j < N; ++j) {
-        const float* Lj = Lg + ((size_t)(t + j) * (BW + 1) + j - 1) * DD;
-        const float* xj = vring + ((t + j) & (RING - 1)) * VPAD;
-        for (int r = 0; r < D; ++r) s = fmaf(-Lj[r * D + tid], xj[r], s);
+        const float* Lj = B(2 + 3 * buf + j - 1);
+        const float* xj = xring + ((t + j) & 3) * VP;
+        for (int i = i0; i < i1; ++i) acc = fmaf(Lj[i * D + r], xj[i], acc);
       }
-      v[tid] = s;
+      part[q * VP + r] = acc;
     }
     __syncthreads();
-    trsv_t(v, Ld);
+    if (tid < D)
+      sv[tid] = yv - ((part[tid] + part[VP + tid]) +
+                      (part[2 * VP + tid] + part[3 * VP + tid]));
     __syncthreads();
-    if (tid < D) xb[(size_t)t * D + tid] = v[tid];
+    if (q < 4) {
+      const float* X = B(buf);
+      float acc = 0.f;
+      for (int i = i0 > r ? i0 : r; i < i1; ++i)
+        acc = fmaf(X[i * D + r], sv[i], acc);
+      part[q * VP + r] = acc;
+    }
+    __syncthreads();
+    if (tid < D) {
+      const float v = (part[tid] + part[VP + tid]) +
+                      (part[2 * VP + tid] + part[3 * VP + tid]);
+      xring[(t & 3) * VP + tid] = v;
+      xb[(size_t)t * D + tid] = v;
+    }
+    PROBE(PR_BWD);
   }
   __syncthreads();
   if (bad) {
-    for (int e = tid; e < N * D; e += THREADS) xb[e] = __int_as_float(0x7fc00000);
+    for (int e = tid; e < N * D; e += THREADS) xb[e] = qnan();
   }
+#ifdef BANDED_PHASE_PROBE
+  if (tid < NPROBE)
+    probe[b * NPROBE + tid] = tid < PR_CHOL_PIVOTS ? prb[tid]
+                                                   : prb_sub[tid - PR_CHOL_PIVOTS];
+#endif
 }
 
 }  // namespace
 
 extern "C" {
 
-// Solve B systems; work holds B*N*4*54*54 floats of factor rows. Launches on
-// `stream` and returns cudaGetLastError() (0 = launched).
+// Solve B systems; work holds B*N*4*54*54 floats of factor rows, probe
+// B*8 counters when the library is built with -DBANDED_PHASE_PROBE (else
+// unused, may be null). All pointers 16-byte aligned. Launches on `stream`
+// and returns cudaGetLastError() (0 = launched).
 int banded_solve_f32(const float* diag, const float* lower, const float* rhs,
-                     float* x, float* work, int B, int N, void* stream) {
+                     float* x, float* work, long long* probe, int B, int N,
+                     void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       banded_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   banded_solve_kernel<<<B, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      diag, lower, rhs, x, work, N);
+      diag, lower, rhs, x, work, probe, N);
   return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from cheetah_pose_estimation_tpu.models import noise as noise_tables
-from cheetah_pose_estimation_tpu.models.params import SubjectParams
 
+from ..models import noise as noise_tables
 from ..models import skeleton as sk
+from ..models.params import SubjectParams
 from ..ops import camera as cam_ops
 
 

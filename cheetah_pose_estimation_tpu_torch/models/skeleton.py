@@ -17,10 +17,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from cheetah_pose_estimation_tpu.models.params import (
-    LINK_INDEX, LINK_NAMES, N_LINKS, NQ, SubjectParams)
-
 from ..ops.rotations import euler_zyx, euler_zyx_and_derivative
+from .params import LINK_INDEX, LINK_NAMES, N_LINKS, NQ, SubjectParams
 
 __all__ = ["LINK_NAMES", "MARKERS", "N_MARKERS", "fk_markers",
            "fk_markers_linear", "fk_markers_and_jacobian", "joint_residuals",

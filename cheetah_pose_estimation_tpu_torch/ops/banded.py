@@ -89,6 +89,25 @@ def to_dense(H: BlockBanded) -> torch.Tensor:
     return A
 
 
+def row_sum_norm(H: BlockBanded) -> torch.Tensor:
+    """||H||_inf per lane (B,): the largest absolute row sum."""
+    ones = H.diag.new_ones(H.diag.shape[:-1])
+    return matvec(BlockBanded(H.diag.abs(), H.lower.abs()), ones).amax((1, 2))
+
+
+def backward_error(H: BlockBanded, x: torch.Tensor, b: torch.Tensor
+                   ) -> torch.Tensor:
+    """Normwise backward error of a solution, per lane (B,):
+    ||H x - b||_inf / (||H||_inf ||x||_inf + ||b||_inf), in float64. A
+    backward-stable solve gives a few units of its dtype's eps whatever the
+    system's condition (tests and the chip check only)."""
+    H = BlockBanded(H.diag.double(), H.lower.double())
+    x, b = x.double(), b.double()
+    norm_h = row_sum_norm(H)
+    r = (matvec(H, x) - b).abs().amax((1, 2))
+    return r / (norm_h * x.abs().amax((1, 2)) + b.abs().amax((1, 2)))
+
+
 def cholesky(H: BlockBanded) -> BlockBanded:
     """Blocked banded Cholesky H = L L^T, frame by frame over time.
 

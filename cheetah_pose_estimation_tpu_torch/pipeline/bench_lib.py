@@ -13,10 +13,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from cheetah_pose_estimation_tpu.models import noise as noise_tables
-from cheetah_pose_estimation_tpu.models import params as P
 
 from ..data import synthetic as syn
+from ..models import noise as noise_tables
+from ..models import params as P
 from ..models import skeleton as sk
 from ..parallel import batch as pbatch
 from ..solver import kinematic as kin

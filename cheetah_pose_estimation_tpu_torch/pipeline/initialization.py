@@ -14,8 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 from scipy.interpolate import UnivariateSpline
-from cheetah_pose_estimation_tpu.models.params import SubjectParams
 
+from ..models.params import SubjectParams
 from ..models.skeleton import LINK_NAMES, MARKERS
 from ..ops import camera as cam_ops
 

@@ -65,18 +65,12 @@ def _lanes(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return x.view((-1,) + (1,) * (ndim - 1))
 
 
-def _scaled_solve(g: torch.Tensor, H: banded.BlockBanded, lam: torch.Tensor,
-                  diag_floor, linear_solver: Optional[str] = None
-                  ) -> torch.Tensor:
-    """Solve (H + lam * diag(H)) dq = -g via symmetric Jacobi scaling
-    S = diag(H)^-1/2 (Marquardt damping, and the system's mixed scales
-    normalized for the float32 factorization). lam is per lane (B,).
-    ``linear_solver=None`` picks the default for g's device."""
-    if linear_solver is None:
-        linear_solver = default_linear_solver(g)
-    if linear_solver not in LINEAR_SOLVERS:
-        raise ValueError(f"linear_solver={linear_solver!r}; one of "
-                         f"{LINEAR_SOLVERS}")
+def scaled_system(g: torch.Tensor, H: banded.BlockBanded, lam: torch.Tensor,
+                  diag_floor) -> Tuple[banded.BlockBanded, torch.Tensor,
+                                       torch.Tensor]:
+    """The damped, Jacobi-scaled system that the linear solver gets:
+    (S H S + lam I) y = -S g with S = diag(H)^-1/2, and dq = S y. Returns
+    (the scaled H, -S g, the scale s (B, N, d)). lam is per lane (B,)."""
     d = torch.diagonal(H.diag, dim1=-2, dim2=-1)
     d = torch.maximum(d, torch.as_tensor(diag_floor, dtype=d.dtype,
                                          device=d.device))
@@ -90,15 +84,30 @@ def _scaled_solve(g: torch.Tensor, H: banded.BlockBanded, lam: torch.Tensor,
         sk = torch.zeros_like(s)
         sk[:, : N - k] = s[:, k:]                            # s[t+k] rows
         bands.append(H.lower[:, k - 1] * sk[..., :, None] * s[..., None, :])
-    Hs_lower = torch.stack(bands, 1)
-    rhs = -(g * s)
+    return (banded.BlockBanded(Hs_diag, torch.stack(bands, 1)), -(g * s),
+            s)
+
+
+def _scaled_solve(g: torch.Tensor, H: banded.BlockBanded, lam: torch.Tensor,
+                  diag_floor, linear_solver: Optional[str] = None
+                  ) -> torch.Tensor:
+    """Solve (H + lam * diag(H)) dq = -g via symmetric Jacobi scaling
+    S = diag(H)^-1/2 (Marquardt damping, and the system's mixed scales
+    normalized for the float32 factorization; :func:`scaled_system`).
+    ``linear_solver=None`` picks the default for g's device."""
+    if linear_solver is None:
+        linear_solver = default_linear_solver(g)
+    if linear_solver not in LINEAR_SOLVERS:
+        raise ValueError(f"linear_solver={linear_solver!r}; one of "
+                         f"{LINEAR_SOLVERS}")
+    Hs, rhs, s = scaled_system(g, H, lam, diag_floor)
     if linear_solver == "cuda":
-        y = cuda_banded.solve(Hs_diag.contiguous(), Hs_lower.contiguous(),
+        y = cuda_banded.solve(Hs.diag.contiguous(), Hs.lower.contiguous(),
                               rhs.contiguous())
     elif linear_solver == "cr":
-        y = banded.cr_solve(banded.BlockBanded(Hs_diag, Hs_lower), rhs)
+        y = banded.cr_solve(Hs, rhs)
     else:
-        y = banded.solve(banded.BlockBanded(Hs_diag, Hs_lower), rhs)
+        y = banded.solve(Hs, rhs)
     return y * s
 
 

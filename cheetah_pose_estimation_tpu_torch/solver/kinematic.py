@@ -17,9 +17,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from cheetah_pose_estimation_tpu.models.params import SubjectParams
 
 from ..models import skeleton as sk
+from ..models.params import SubjectParams
 from ..ops import banded, camera, losses
 
 NQ = 54

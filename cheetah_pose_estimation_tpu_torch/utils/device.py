@@ -1,11 +1,13 @@
 """Device selection for the port's entry points.
 
-Every entry point takes a ``device`` argument and resolves it here. Float32
-products run at full precision: the JAX package forces
-``Precision.HIGHEST`` on the whole solver path (``solver/kinematic.py:818``,
-``ops/banded.py:86``) because reduced-precision products broke its
-factorizations; on the card the counterpart of that fault is TF32, so
-resolving a CUDA device switches TF32 off for matmuls and cuDNN.
+Every entry point takes a ``device`` argument and resolves it here. The card
+is the default: ``None`` is the current CUDA device, and the CPU is used only
+when asked for with ``device="cpu"``. Float32 products run at full
+precision: the JAX package forces ``Precision.HIGHEST`` on the whole solver
+path (``solver/kinematic.py:818``, ``ops/banded.py:86``) because
+reduced-precision products broke its factorizations; on the card the
+counterpart of that fault is TF32, so resolving a CUDA device switches TF32
+off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
@@ -23,9 +25,12 @@ def full_precision() -> None:
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> CPU; otherwise the named device. A CUDA device must exist
-    (no silent fallback to the CPU) and gets full-precision float32."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` -> the current CUDA device (raises when no GPU is visible;
+    never falls back to the CPU); otherwise the named device. A CUDA device
+    must exist and gets full-precision float32."""
+    if device is None:
+        return require_cuda()
+    dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
         full_precision()
@@ -35,7 +40,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def require_cuda() -> torch.device:
     """The current CUDA device; raises when no GPU is visible."""
     if not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device is required but "
-                           "torch.cuda.is_available() is False")
+        raise RuntimeError("the port runs on a CUDA device by default, but "
+                           "torch.cuda.is_available() is False; pass "
+                           "device=\"cpu\" to run on the CPU")
     full_precision()
     return torch.device("cuda", torch.cuda.current_device())

@@ -10,9 +10,15 @@ Phases (any failure exits nonzero):
 2. build   — compile ``csrc/banded_solve.cu`` from this checkout.
 3. kernel  — the banded-solve kernel (float32) against its plain PyTorch
    version in float64 on the card, at (B, N) = (10, 64), (30, 64), (1, 256),
-   on random SPD banded systems and on damped, Jacobi-scaled normal systems
-   of the slice's own problems; relative error <= 7e-4. An indefinite lane
-   must come back NaN with the other lanes finite. Kernel and plain times.
+   on random SPD banded systems and on damped (lam = 1e-2), Jacobi-scaled
+   normal systems of the slice's own problems; relative error <= 7e-4.
+   At the LM loop's small dampings (lam = 1e-6, 1e-12; 10x64, 30x64) each
+   lane is NaN or has a normwise backward error <= 1e-5, and every lane
+   that is positive definite by a float32 margin is finite. An indefinite
+   lane and an all-NaN lane come back NaN with the other lanes
+   bit-identical. Kernel, plain, scan, CR and one-call library
+   (``torch.linalg.solve`` on the dense matrix) times; the bound from the
+   kernel's FLOPs and the bytes the solve must move.
 4. main    — stage 1 of the bench: 10 procedural monocular problems padded
    to 64 frames, ``make_kinematic_multistart`` once (warm-up, with the
    kernel's launch count) and 3 timed repeats; one more run with the probe
@@ -20,9 +26,12 @@ Phases (any failure exits nonzero):
 5. agree   — the same problems with ``linear_solver="scan"``, and the JAX
    package's float32 stage-1 numbers (``tests/data/jax_stage1_f32.json``):
    mean MPJPE within 2 % of both.
+6. profile — one more stage-1 run under torch.profiler: the device's busy
+   share of the wall time and the kernel's share of device time.
 
-The line before the last is a JSON object with the kernel's launches, error
-and times; the last line is ``{"ok": true, "device": {...}}``.
+Before the last two lines: a JSON object with the kernel's launches, error,
+times and bound (at 10x64, and per shape), then the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -35,6 +44,9 @@ import numpy as np
 import torch
 
 TOL_REL = 7e-4        # the JAX Pallas kernel's bar (linsolve_bench.json)
+TOL_BACKWARD = 1e-5   # normwise backward error, float32 (eps 1.2e-7)
+PEAK_F32_FLOP_S = 67e12   # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 TOL_MPJPE = 0.02      # mean MPJPE agreement, relative
 SHAPES = ((10, 64), (30, 64), (1, 256))
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -83,14 +95,17 @@ def random_spd_banded(B, N, seed, dev):
     return diag.to(dev), lower.to(dev), rhs.to(dev)
 
 
-def normal_systems(B, N, dev):
+def normal_systems(B, N, dev, lam=1e-2):
     """Damped, Jacobi-scaled normal systems (exactly what
     ``gn._scaled_solve`` hands the kernel) of the slice's problems at q0,
-    annealing scale 1, lam = lam0. B = 30 replicates the 10 trials over the
-    3 heading restarts, like the probe."""
+    annealing scale 1, damping ``lam`` (lam0 = 1e-2; the LM loop takes it
+    down to lam_min = 1e-12). B = 30 replicates the 10 trials over the 3
+    heading restarts, like the probe. Float32, contiguous."""
     from cheetah_pose_estimation_tpu_torch.data import synthetic as syn
+    from cheetah_pose_estimation_tpu_torch.models import params
     from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.solver import gn
     from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
 
     if N == 64:
@@ -106,20 +121,58 @@ def normal_systems(B, N, dev):
         d, q0n, _ = bench_lib.build_monocular_problem(
             syn.gallop_trajectory(N, seed=0), "acinoset", 120.0, seed=0)
         batched, q0 = pbatch.pad_and_stack([d], [q0n], device=dev)
-        subject = bench_lib.P.get_subject("acinoset")
+        subject = params.get_subject("acinoset")
     fte = kin.KinematicFTE(kin.KinematicConfig(), subject)
     g, H = fte._normal(q0, batched, 1.0)
-    s = torch.rsqrt(torch.clamp(torch.diagonal(H.diag, dim1=-2, dim2=-1),
-                                min=1e-8))
-    eye = torch.eye(54, dtype=g.dtype, device=dev)
-    diag = H.diag * s[..., :, None] * s[..., None, :] + 1e-2 * eye
-    bands = []
-    for k in range(1, 4):
-        sk = torch.zeros_like(s)
-        sk[:, : N - k] = s[:, k:]
-        bands.append(H.lower[:, k - 1] * sk[..., :, None] * s[..., None, :])
-    return (diag.contiguous(), torch.stack(bands, 1).contiguous(),
-            (-(g * s)).contiguous())
+    Hs, rhs, _ = gn.scaled_system(g, H, torch.full((B,), lam, device=dev),
+                                  1e-8)
+    return (Hs.diag.contiguous(), Hs.lower.contiguous(), rhs.contiguous())
+
+
+def kernel_flops(N):
+    """Floating-point operations of one system's solve by the kernel's own
+    algorithm (csrc/banded_solve.cu), counted from its loops: per frame the
+    54x54x54 products (L[t,t-j] = M_j X^T, the M_j updates, the Schur
+    update), the blocked Cholesky and inverse of the diagonal block (three
+    18x18 factors and inverses, fourteen 18x18x18 products), and both
+    substitutions as matvecs."""
+    big = {0: 0, 1: 2, 2: 5, 3: 9}           # 54^3 products per frame by nb
+    p = 18
+    chol_inv = 3 * (p ** 3 / 3 + p ** 3 / 3) + 14 * 2 * p ** 3
+    total = 0.0
+    for t in range(N):
+        nb = min(t, 3)
+        nbb = min(N - 1 - t, 3)              # backward terms of frame t
+        total += (big[nb] * 2 * 54 ** 3 + chol_inv
+                  + (nb + nbb) * 2 * 54 * 54 + 2 * 54 * 55)
+    return total
+
+
+def bound(B, N):
+    """(bound_ms, bound_by): the larger of the bytes the solve must move
+    (inputs read once, x written once) over HBM bandwidth and the kernel's
+    FLOPs over the float32 (non-tensor-core) peak."""
+    nbytes = 4 * B * N * (4 * 54 * 54 + 2 * 54)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = B * kernel_flops(N) / PEAK_F32_FLOP_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations")
+
+
+def check_nan_lane(solve, diag, lower, rhs, lane, poison, what):
+    """Poisoning one lane makes that lane's x all NaN and leaves the other
+    lanes bit-identical."""
+    x_ok = solve(diag, lower, rhs)
+    d, l, r = diag.clone(), lower.clone(), rhs.clone()
+    poison(d, l, r)
+    x_bad = solve(d, l, r)
+    torch.cuda.synchronize()
+    others = [i for i in range(diag.shape[0]) if i != lane]
+    if not (torch.isnan(x_bad[lane]).all()
+            and torch.isfinite(x_bad[others]).all()
+            and torch.equal(x_bad[others], x_ok[others])):
+        raise AssertionError(f"{what} lane did not give NaN in that lane "
+                             "alone")
+    log(f"# kernel: {what} lane -> NaN, other lanes bit-identical")
 
 
 def phase_kernel(dev, results):
@@ -129,11 +182,10 @@ def phase_kernel(dev, results):
     for B, N in SHAPES:
         for kind in ("random_spd", "normal"):
             if kind == "normal":
-                diag, lower, rhs = normal_systems(B, N, dev)
+                d32, l32, r32 = normal_systems(B, N, dev)
             else:
-                diag, lower, rhs = random_spd_banded(B, N, B * 1000 + N, dev)
-            d32, l32, r32 = (x.float().contiguous() for x in (diag, lower,
-                                                              rhs))
+                d32, l32, r32 = (x.float().contiguous() for x in
+                                 random_spd_banded(B, N, B * 1000 + N, dev))
             x = cuda_banded.solve(d32, l32, r32)
             torch.cuda.synchronize()
             ref = cuda_banded.solve_reference(d32.double(), l32.double(),
@@ -142,19 +194,28 @@ def phase_kernel(dev, results):
                 raise AssertionError(f"non-finite solve at {(B, N)} {kind}")
             abs_err = float((x.double() - ref).abs().max())
             rel = abs_err / float(ref.abs().max())
+            H32 = banded.BlockBanded(d32, l32)
             row = {"B": B, "N": N, "systems": kind, "rel_err": rel,
-                   "max_abs_err": abs_err}
+                   "max_abs_err": abs_err, "backward_err": float(
+                       banded.backward_error(H32, x, r32).max())}
             if kind == "normal":
                 row["kernel_ms"] = cuda_ms(lambda: cuda_banded.solve(d32, l32,
                                                                      r32))
                 row["plain_ms"] = cuda_ms(
                     lambda: cuda_banded.solve_reference(d32, l32, r32),
                     reps=3, warmup=1)
-                H32 = banded.BlockBanded(d32, l32)
                 row["scan_ms"] = cuda_ms(lambda: banded.solve(H32, r32),
                                          reps=3, warmup=1)
                 row["cr_ms"] = cuda_ms(lambda: banded.cr_solve(H32, r32),
                                        reps=3, warmup=1)
+                dense = banded.to_dense(H32)
+                rhs_col = r32.reshape(r32.shape[0], -1, 1)
+                row["library_ms"] = cuda_ms(
+                    lambda: torch.linalg.solve(dense, rhs_col), reps=3,
+                    warmup=1)
+                del dense
+                row["bound_ms"], row["bound_by"] = bound(B, N)
+                row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
             log(f"# kernel {row}")
             rows.append(row)
             worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs,
@@ -162,24 +223,55 @@ def phase_kernel(dev, results):
             if rel > TOL_REL:
                 raise AssertionError(f"kernel rel err {rel:.3e} > {TOL_REL} "
                                      f"at {(B, N)} {kind}")
-    # an indefinite lane comes back NaN; the other lanes are untouched
-    diag, lower, rhs = (x.float().contiguous()
-                        for x in normal_systems(10, 64, dev))
-    x_ok = cuda_banded.solve(diag, lower, rhs)
-    diag[3, 5] = -torch.eye(54, device=dev)
-    x_bad = cuda_banded.solve(diag, lower, rhs)
-    torch.cuda.synchronize()
-    others = [i for i in range(10) if i != 3]
-    if not (torch.isnan(x_bad[3]).all()
-            and torch.isfinite(x_bad[others]).all()
-            and torch.equal(x_bad[others], x_ok[others])):
-        raise AssertionError("indefinite lane did not give NaN in that lane "
-                             "alone")
-    log("# kernel: indefinite lane -> NaN, other lanes unchanged")
+    # the LM loop's small dampings: float32 forward error cannot reach the
+    # bar there (condition 1e6-1e9; at 1e-12 the float32 systems are
+    # indefinite), so each lane is NaN or has a small backward error
+    hard = []
+    for B, N in SHAPES[:2]:
+        for lam in (1e-6, 1e-12):
+            d32, l32, r32 = normal_systems(B, N, dev, lam)
+            row = {"B": B, "N": N, "lam": lam}
+            for name, fn in (("kernel", cuda_banded.solve),
+                             ("plain_f32", cuda_banded.solve_reference)):
+                x = fn(d32, l32, r32)
+                torch.cuda.synchronize()
+                q = cuda_banded.solve_quality(d32, l32, r32, x)
+                fin = q["finite"]
+                fwd = q["forward"][fin & torch.isfinite(q["forward"])]
+                row[name] = {
+                    "nan_lanes": int((~fin).sum()),
+                    "spd_margin_lanes": int(q["spd_margin"].sum()),
+                    "max_backward_err": float(q["backward"][fin].max())
+                    if fin.any() else None,
+                    # against the float64 solve of the same inputs, where
+                    # that factorization succeeds
+                    "max_rel_err_finite": float(fwd.max())
+                    if fwd.numel() else None}
+                if name == "kernel" and not (
+                        (q["backward"][fin] <= TOL_BACKWARD).all()
+                        and fin[q["spd_margin"]].all()
+                        and torch.isnan(x[~fin]).all()):
+                    raise AssertionError(f"kernel at lam={lam} {(B, N)}: "
+                                         f"{row}")
+            log(f"# kernel {row}")
+            hard.append(row)
+    results["kernel_small_damping"] = hard
+    diag, lower, rhs = normal_systems(10, 64, dev)
+
+    def indefinite(d, l, r):
+        d[3, 5] = -torch.eye(54, device=dev)
+
+    def all_nan(d, l, r):
+        d[6].fill_(float("nan"))
+        l[6].fill_(float("nan"))
+        r[6].fill_(float("nan"))
+
+    check_nan_lane(cuda_banded.solve, diag, lower, rhs, 3, indefinite,
+                   "indefinite")
+    check_nan_lane(cuda_banded.solve, diag, lower, rhs, 6, all_nan,
+                   "all-NaN")
     results["kernel"] = rows
-    main_shape = next(r for r in rows
-                      if (r["B"], r["N"], r["systems"]) == (10, 64, "normal"))
-    return worst_rel, worst_abs, main_shape
+    return worst_rel, worst_abs, [r for r in rows if r["systems"] == "normal"]
 
 
 def phase_main(dev, results):
@@ -265,6 +357,41 @@ def probe_finish_split(fte, q0b, batched):
     return split
 
 
+def phase_profile(ctx, results):
+    """One more stage-1 run under torch.profiler: the device's busy share of
+    the wall time (sum of kernel times on the one stream over the host
+    clock), the banded-solve kernel's share of device time, and the count
+    of kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
+
+    fte, batched, q0b = ctx[:3]
+    run = pbatch.make_kinematic_multistart(fte)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(q0b, batched)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    dev_us, solve_us, n = 0.0, 0.0, 0
+    for ev in prof.events():
+        if ev.device_type.name != "CUDA":
+            continue
+        us = ev.time_range.elapsed_us()
+        dev_us += us
+        n += 1
+        if "banded_solve_kernel" in ev.name:
+            solve_us += us
+    out = {"wall_s": wall_s, "device_busy_share": dev_us / 1e6 / wall_s,
+           "device_s": dev_us / 1e6, "banded_solve_s": solve_us / 1e6,
+           "banded_solve_share_of_device": solve_us / max(dev_us, 1e-9),
+           "device_kernel_launches": n}
+    log(f"# profile: {out}")
+    results["profile"] = out
+
+
 def phase_agree(ctx, rows_kernel, results):
     from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
@@ -314,8 +441,10 @@ def main():
     from cheetah_pose_estimation_tpu_torch.utils.device import resolve_device
 
     results = {}
-    # 1. device
-    dev = resolve_device("cuda")
+    # 1. device (the port's default: the current CUDA device)
+    dev = resolve_device()
+    if dev.type != "cuda":
+        raise AssertionError(f"resolve_device() gave {dev}")
     gpu = gpu_name_and_limit()
     log(f"# device: {gpu} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
@@ -333,10 +462,14 @@ def main():
             log(f"# build: {line.strip()}")
     results["build_s"] = build_s
     # 3-5
-    worst_rel, worst_abs, main_shape = phase_kernel(dev, results)
+    worst_rel, worst_abs, timed = phase_kernel(dev, results)
     launches, rows, ctx = phase_main(dev, results)
     phase_agree(ctx, rows, results)
+    phase_profile(ctx, results)
 
+    main_shape = timed[0]                     # (10, 64): the finish's shape
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "roofline_share")
     kernels = {"kernels": [{
         "name": "banded_solve",
         "route": "cuda",
@@ -346,7 +479,13 @@ def main():
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],
-        "plain_ms": main_shape["plain_ms"]}]}
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "roofline_share": main_shape["roofline_share"],
+        "shapes": [{"B": r["B"], "N": r["N"], **{k: r[k] for k in keys}}
+                   for r in timed]}]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w", encoding="utf-8") as f:

@@ -6,13 +6,17 @@ version, on the card. Imports no JAX, so it runs where JAX is absent:
 
 Skips (and counts no pass) where ``torch.cuda.is_available()`` is False.
 Tolerance: float32 kernel vs the float64 plain version, relative to the
-largest entry, <= 7e-4 (the JAX Pallas kernel's bar against its scan).
+largest entry, <= 7e-4 (the JAX Pallas kernel's bar against its scan). On
+the solver's normal systems at lam = 1e-12 (float32-rounded, they are
+indefinite) a lane is either NaN or has a normwise backward error <= 1e-5,
+and every lane that is positive definite by a float32 margin is finite
+(``cuda_banded.solve_quality``).
 """
-import numpy as np
 import pytest
 import torch
 
 from cheetah_pose_estimation_tpu_torch.ops import cuda_banded as cb
+from cheetah_pose_estimation_tpu_torch.ops.banded_probe import random_systems
 
 
 def _cuda():
@@ -21,25 +25,12 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _systems(B, N, seed, dev):
-    """Block-diagonally dominant SPD systems in the kernel's layout."""
-    rng = np.random.default_rng(seed)
-    lower = 0.02 * rng.normal(size=(B, 3, N, 54, 54))
-    for k in range(1, 4):
-        lower[:, k - 1, max(N - k, 0):] = 0.0
-    sym = rng.normal(size=(B, N, 54, 54))
-    diag = 0.1 * (sym + np.swapaxes(sym, -1, -2)) + 20.0 * np.eye(54)
-    rhs = rng.normal(size=(B, N, 54))
-    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
-            for a in (diag, lower, rhs)]
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N", [(10, 64), (30, 64), (1, 256), (3, 5),
-                                 (2, 1)])
+                                 (2, 1), (4, 7)])
 def test_kernel_matches_plain(B, N):
     dev = _cuda()
-    diag, lower, rhs = _systems(B, N, B * 1000 + N, dev)
+    diag, lower, rhs = random_systems(B, N, B * 1000 + N, dev)
     before = cb.launches
     x = cb.solve(diag, lower, rhs)
     torch.cuda.synchronize()
@@ -51,7 +42,7 @@ def test_kernel_matches_plain(B, N):
 @pytest.mark.gpu
 def test_kernel_nan_lane_and_rejects():
     dev = _cuda()
-    diag, lower, rhs = _systems(4, 8, 0, dev)
+    diag, lower, rhs = random_systems(4, 8, 0, dev)
     ok = cb.solve(diag, lower, rhs)
     diag[2, 3] = -torch.eye(54, device=dev)
     x = cb.solve(diag, lower, rhs)
@@ -62,3 +53,27 @@ def test_kernel_nan_lane_and_rejects():
         cb.solve(diag.double(), lower.double(), rhs.double())
     with pytest.raises(ValueError):
         cb.solve(diag[..., :50, :50].contiguous(), lower, rhs)
+
+
+@pytest.mark.gpu
+def test_kernel_on_normal_systems_lam_1e12():
+    dev = _cuda()
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.solver import gn
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+    batched, q0, _, subject = bench_lib.build_batch(
+        max_trials=10, n_frames=64, dtype=torch.float64, device=dev)
+    g, H = kin.KinematicFTE(kin.KinematicConfig(), subject)._normal(
+        q0, batched, 1.0)
+    Hs, rhs, _ = gn.scaled_system(g, H, torch.full((10,), 1e-12,
+                                                    device=dev,
+                                                    dtype=torch.float64),
+                                  1e-8)
+    f32 = [a.float().contiguous() for a in (Hs.diag, Hs.lower, rhs)]
+    x = cb.solve(*f32)
+    torch.cuda.synchronize()
+    qual = cb.solve_quality(*f32, x)
+    fin = qual["finite"]
+    assert (qual["backward"][fin] <= 1e-5).all(), qual
+    assert fin[qual["spd_margin"]].all(), qual
+    assert torch.isnan(x[~fin]).all()

@@ -39,7 +39,7 @@ def problem16():
     q_gt, _, fps = jbl.load_reference_trajectories(max_trials=1)[0]
     data, q0, _ = jbl.build_monocular_problem(q_gt[:16], "acinoset", fps,
                                               seed=0, n_cams=2, cam_idx=1)
-    tdata, tq0 = convert.kinematic_problem(data, q0)
+    tdata, tq0 = convert.kinematic_problem(data, q0, device="cpu")
     return data, q0, tdata, tq0
 
 
@@ -135,7 +135,8 @@ def test_short_multistart_matches_jax(ftes):
                        linear_solver="scan"),
         jf.make_solver(stages=((3.0, 2), (1.0, 4)), linear_solver="cr"))
     st = run(qj, bj)
-    bt, qt = convert.kinematic_problem(bj, qj, batched=True)
+    bt, qt = convert.kinematic_problem(bj, qj, batched=True,
+                                      device="cpu")
     trun = tbatch.make_multistart_probe(
         tf.make_solver(stages=((10.0, 3),), driver="fixed"),
         tf.make_solver(stages=((3.0, 2), (1.0, 4))))
@@ -154,7 +155,7 @@ def test_annealed_lanes_run_independently(ftes):
     _, tf = ftes
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
     b, q0, _, _ = bench_lib.build_batch(max_trials=2, n_frames=44,
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
     run = tf.make_solver(stages=((3.0, 3), (1.0, 5)))
     both = run(q0, b)
     for i in range(2):
@@ -188,7 +189,8 @@ def test_padded_batch_normal_matches_jax(ftes):
     jf, tf = ftes
     bj, qj, _, _ = jbl.build_batch(max_trials=2, n_frames=44,
                                    dtype=jnp.float64)
-    bt, qt = convert.kinematic_problem(bj, qj, batched=True)
+    bt, qt = convert.kinematic_problem(bj, qj, batched=True,
+                                      device="cpu")
     g, H = jax.jit(jax.vmap(lambda q, d: jf._normal(q, d, 1.0)))(qj, bj)
     tg, tH = tf._normal(qt, bt, 1.0)
     assert _rel(g, tg) < 1e-10

@@ -54,7 +54,7 @@ def test_build_monocular_problem_matches_jax(seed, cam_idx):
 def test_build_batch_matches_jax_pad_and_stack():
     """Two trials of unequal length padded to 48 frames, float64."""
     bt, qt, trials, _ = tbl.build_batch(max_trials=2, n_frames=48,
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
     datas, q0s = [], []
     for i, (q, _, fps) in enumerate(jbl.load_reference_trajectories(2)):
         d, q0, _ = jbl.build_monocular_problem(q, "acinoset", fps, seed=i)
