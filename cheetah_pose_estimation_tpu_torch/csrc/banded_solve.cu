@@ -22,7 +22,8 @@
 //
 // What bounds it: latency. The frames run in sequence and one thread block
 // owns one system, so B = 10 to 30 blocks use 10 to 30 of the 132 SMs; the
-// work is ~3 MFLOP per frame. A plain substitution makes every frame a chain
+// solve needs ~2.0 MFLOP per frame (this kernel does ~2.6: its products
+// with the triangular X are dense). A plain substitution makes every frame a chain
 // of ~270 dependent steps (54 pivots, three 54-step triangular solves, two
 // 54-step substitutions). This design shortens the chain:
 //  * Triangular solves become products with X[t-j]: 54x54x54 register-tiled
@@ -39,11 +40,13 @@
 //    into their staging buffers while the current frame factors its
 //    diagonal block, so no frame waits for device memory; the backward pass
 //    prefetches its four factor blocks the same way.
+// Row t+1's L[t+1,t-3], M_2 and L[t+1,t-1] are formed ahead, by warps 1-7
+// while warp 0 factors row t's diagonal block.
 // What is left on the chain (PERF.md, phase probe): the 54 pivot steps of
 // the three panels, each a shuffle, the reciprocal and two FMAs, and the
 // products, which run at a few percent of the FMA rate because each phase
-// is short. Working ahead on frame t+1 while one warp factors frame t is
-// the next lever.
+// is short. The next levers are a CUDA cyclic reduction (depth log N, more
+// SMs than systems) or several systems per SM.
 // Shared memory keeps what later frames read: the staged row t, L[t,t-1]
 // and L[t,t-2] of rows t..t-2, X of rows t..t-2, a second diagonal buffer
 // for the prefetch, and the products' partial sums (18 dense 54x54 blocks,
@@ -52,7 +55,7 @@
 // the backward pass reads.
 //
 // Arithmetic is plain float32 FMA: no tensor cores, no TF32. The work is
-// ~1.5 GFLOP per call and latency-bound, so wgmma is not the lever, and TF32
+// ~1.7 GFLOP per call at 10x64 and latency-bound, so wgmma is not the lever, and TF32
 // would break the 7e-4 accuracy bar. sqrtf and one correctly rounded
 // reciprocal per pivot (__frcp_rn; build without --use_fast_math): a float32
 // division per element carries a slow-path check and call. The explicit
@@ -64,8 +67,8 @@
 // at 1e-30 instead.
 //
 // Built with -DBANDED_PHASE_PROBE (ops/banded_probe.py, never the main
-// path), thread 0 adds the clock64 cycles of each phase into a per-system
-// probe buffer.
+// path), thread 0 adds the clock64 cycles of each phase into the buffer
+// that banded_probe_set() names, NPROBE counters per system.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -93,21 +96,10 @@ constexpr int B_LT = 15;  // 1: off-diagonal panels of L[t,t]
 constexpr int B_R = 16;   // 2: partial sums of big_nt
 
 #ifdef BANDED_PHASE_PROBE
-constexpr int NPROBE = 15;
+constexpr int NPROBE = 8;
 enum { PR_LOAD, PR_OFFDIAG, PR_TRSM, PR_SCHUR, PR_CHOL, PR_PANEL, PR_FWD,
-       PR_BWD, PR_CHOL_PIVOTS, PR_CHOL_SCALE, PR_CHOL_INV, PR_CHOL_STORE,
-       PR_BIG_LOOP, PR_BIG_BARRIER, PR_BIG_EPILOGUE };
-// cycles of the steps inside chol_inv_panel and big_nt (thread 0)
-__shared__ long long prb_sub[7];
-#define SUB_PROBE(k)                                              \
-  do {                                                             \
-    if (threadIdx.x == 0) {                                        \
-      const long long c_ = clock64();                              \
-      prb_sub[k] += c_ - t_;                                      \
-      t_ = c_;                                                     \
-    }                                                              \
-  } while (0)
-#define SUB_PROBE_START() long long t_ = clock64()
+       PR_BWD };
+__device__ long long* g_probe;
 #define PROBE(k)                                                   \
   do {                                                             \
     if (threadIdx.x == 0) {                                        \
@@ -119,12 +111,6 @@ __shared__ long long prb_sub[7];
 #else
 #define PROBE(k) \
   do {           \
-  } while (0)
-#define SUB_PROBE(k) \
-  do {                \
-  } while (0)
-#define SUB_PROBE_START() \
-  do {                     \
   } while (0)
 #endif
 
@@ -167,7 +153,6 @@ __device__ void big_nt(float* C, float* Cg, bool sub, int n, const float* A0,
                        const float* B0, const float* A1, const float* B1,
                        const float* A2, const float* B2, float* R) {
   const int tid = threadIdx.x;
-  SUB_PROBE_START();
   const int slice = tid / 81, tile = tid % 81, it = tile / 9, kt = tile % 9;
   float acc[6][6];
 #pragma unroll
@@ -211,9 +196,7 @@ __device__ void big_nt(float* C, float* Cg, bool sub, int n, const float* A0,
       for (int c = 0; c < 6; ++c) Rs[(it + 9 * r) * D + kt + 9 * c] = acc[r][c];
     }
   }
-  SUB_PROBE(4);
   __syncthreads();
-  SUB_PROBE(5);
   if (slice < 3) {
 #pragma unroll
     for (int r = 0; r < 6; ++r) {
@@ -231,7 +214,6 @@ __device__ void big_nt(float* C, float* Cg, bool sub, int n, const float* A0,
       }
     }
   }
-  SUB_PROBE(6);
 }
 
 // Work ahead on row t+1 while warp 0 factors row t's diagonal block: C =
@@ -356,7 +338,6 @@ __device__ void small_job(const SmallJob J, int part) {
 __device__ __noinline__ void chol_inv_panel(float* S, float* X, float* Xg,
                                             int* bad) {
   const int lane = threadIdx.x & 31;
-  SUB_PROBE_START();
   float a[P];
 #pragma unroll
   for (int c = 0; c < P; ++c)
@@ -381,7 +362,6 @@ __device__ __noinline__ void chol_inv_panel(float* S, float* X, float* Xg,
     for (int k = c + 1; k < P; ++k) a[k] = fmaf(-l, u[k], a[k]);
   }
   if (!ok && lane == 0) *bad = 1;
-  SUB_PROBE(0);
   const float my_rs = sqrtf(my_inv);       // 1 / L[lane][lane]
   float rinv[P];
 #pragma unroll
@@ -394,7 +374,6 @@ __device__ __noinline__ void chol_inv_panel(float* S, float* X, float* Xg,
     for (int c = 0; c < P; ++c) S[lane * D + c] = a[c];
   }
   __syncwarp();
-  SUB_PROBE(1);
   float x[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) x[i] = i == lane ? 1.f : 0.f;
@@ -404,7 +383,6 @@ __device__ __noinline__ void chol_inv_panel(float* S, float* X, float* Xg,
 #pragma unroll
     for (int m = i + 1; m < P; ++m) x[m] = fmaf(-S[m * D + i], x[i], x[m]);
   }
-  SUB_PROBE(2);
   if (lane < P) {
 #pragma unroll
     for (int i = 0; i < P; ++i) {
@@ -412,14 +390,13 @@ __device__ __noinline__ void chol_inv_panel(float* S, float* X, float* Xg,
       Xg[i * D + lane] = x[i];
     }
   }
-  SUB_PROBE(3);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
 banded_solve_kernel(const float* __restrict__ diag,
                     const float* __restrict__ lower,
                     const float* __restrict__ rhs, float* x, float* work,
-                    long long* probe, int N) {
+                    int N) {
   extern __shared__ __align__(16) float smem[];
   float* blk = smem;                                  // NBLK dense blocks
   float* T = blk + NBLK * DD;                         // 3 18x18 scratch
@@ -432,7 +409,6 @@ banded_solve_kernel(const float* __restrict__ diag,
   __shared__ long long prb[NPROBE];
   long long last = clock64();
   if (threadIdx.x < NPROBE) prb[threadIdx.x] = 0;
-  if (threadIdx.x < 7) prb_sub[threadIdx.x] = 0;
 #endif
   const int tid = threadIdx.x, warp = tid / 32;
   const size_t b = blockIdx.x;
@@ -674,9 +650,7 @@ banded_solve_kernel(const float* __restrict__ diag,
     for (int e = tid; e < N * D; e += THREADS) xb[e] = qnan();
   }
 #ifdef BANDED_PHASE_PROBE
-  if (tid < NPROBE)
-    probe[b * NPROBE + tid] = tid < PR_CHOL_PIVOTS ? prb[tid]
-                                                   : prb_sub[tid - PR_CHOL_PIVOTS];
+  if (tid < NPROBE) g_probe[b * NPROBE + tid] = prb[tid];
 #endif
 }
 
@@ -684,20 +658,30 @@ banded_solve_kernel(const float* __restrict__ diag,
 
 extern "C" {
 
-// Solve B systems; work holds B*N*4*54*54 floats of factor rows, probe
-// B*8 counters when the library is built with -DBANDED_PHASE_PROBE (else
-// unused, may be null). All pointers 16-byte aligned. Launches on `stream`
-// and returns cudaGetLastError() (0 = launched).
+// Once per process, before the first launch: allow the kernel its ~212 KB
+// of dynamic shared memory on the current device. Returns the CUDA error
+// (0 = ok).
+int banded_solve_init() {
+  return (int)cudaFuncSetAttribute(banded_solve_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)SMEM_BYTES);
+}
+
+// Solve B systems; work holds B*N*4*54*54 floats of factor rows. All
+// pointers 16-byte aligned. Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 int banded_solve_f32(const float* diag, const float* lower, const float* rhs,
-                     float* x, float* work, long long* probe, int B, int N,
-                     void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+                     float* x, float* work, int B, int N, void* stream) {
   banded_solve_kernel<<<B, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      diag, lower, rhs, x, work, probe, N);
+      diag, lower, rhs, x, work, N);
   return (int)cudaGetLastError();
 }
+
+#ifdef BANDED_PHASE_PROBE
+// The phase probe's buffer: B*NPROBE counters, written by every launch.
+int banded_probe_set(long long* probe) {
+  return (int)cudaMemcpyToSymbol(g_probe, &probe, sizeof(probe));
+}
+#endif
 
 }  // extern "C"

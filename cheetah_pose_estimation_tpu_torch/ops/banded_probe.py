@@ -5,77 +5,59 @@ path).
 
 Builds ``csrc/banded_solve.cu`` a second time with ``-DBANDED_PHASE_PROBE``
 (thread 0 of each block adds the clock64 cycles of each phase into a
-per-system counter), solves random block-diagonally dominant SPD systems
-and prints the cycles per frame of each phase, averaged over the systems,
-as one JSON line, with the time of the plain build on the same systems
-(CUDA events, 20 launches after 3 warm-ups). The probed build carries the extra clock reads, so its
-total is a little above the plain build's; the main path never loads it.
+per-system counter), solves ``cuda_banded.random_systems`` and prints the
+cycles per frame of each phase, averaged over the systems, as one JSON
+line, with the time of the plain build on the same systems (CUDA events, 20
+launches after 3 warm-ups). The probed build carries the extra clock reads,
+so its total is a little above the plain build's; the main path never
+loads it.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 
-import numpy as np
 import torch
 
 from . import cuda_banded as cb
 
 # the phase counters of csrc/banded_solve.cu, in its order
 PHASES = ("load_wait", "offdiag_update", "offdiag_product", "schur",
-          "chol_panel_warp", "panel_products", "forward_subst", "backward",
-          # inside chol_panel_warp: the pivot chain, square roots and
-          # scaling, the inverse, and the stores of X
-          "chol.pivots", "chol.scale", "chol.inverse", "chol.store",
-          # inside the 54x54 products (all of them): the FMA loop of slice
-          # 0, the wait for the other slices, the reduction and stores
-          "big.loop", "big.barrier", "big.epilogue")
-
-
-def random_systems(B: int, N: int, seed: int, dev) -> list:
-    """Block-diagonally dominant SPD systems in the kernel's layout."""
-    rng = np.random.default_rng(seed)
-    lower = 0.02 * rng.normal(size=(B, 3, N, cb.D, cb.D))
-    for k in range(1, 4):
-        lower[:, k - 1, max(N - k, 0):] = 0.0
-    sym = rng.normal(size=(B, N, cb.D, cb.D))
-    diag = 0.1 * (sym + np.swapaxes(sym, -1, -2)) + 20.0 * np.eye(cb.D)
-    rhs = rng.normal(size=(B, N, cb.D))
-    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
-            for a in (diag, lower, rhs)]
+          "chol_panel_warp", "panel_products", "forward_subst", "backward")
 
 
 def probe(B: int, N: int, seed: int = 0) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
-    diag, lower, rhs = random_systems(B, N, seed, dev)
-    lib = cb.load_library(("BANDED_PHASE_PROBE",))
-    plain = cb.load_library()
+    diag, lower, rhs = cb.random_systems(B, N, seed, dev)
+    lib = cb.load_library(cb.build(("BANDED_PHASE_PROBE",)))
+    plain = cb.load_library(cb.build())
     x = torch.empty_like(rhs)
     work = torch.empty((B, N, cb.BW + 1, cb.D, cb.D), device=dev)
     counts = torch.zeros((B, len(PHASES)), dtype=torch.int64, device=dev)
-    cb.launch(lib, diag, lower, rhs, x, work, counts)     # warm-up
+    if lib.banded_probe_set(ctypes.c_void_p(counts.data_ptr())) != 0:
+        raise RuntimeError("banded_probe_set failed")
+    cb.launch(lib, diag, lower, rhs, x, work)     # warm-up
     counts.zero_()
-    cb.launch(lib, diag, lower, rhs, x, work, counts)
+    cb.launch(lib, diag, lower, rhs, x, work)
     torch.cuda.synchronize()
     ref = cb.solve_reference(diag.double(), lower.double(), rhs.double())
     rel = float((x.double() - ref).abs().max() / ref.abs().max())
     per_frame = counts.double().mean(0) / N
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     for _ in range(3):
-        cb.launch(plain, diag, lower, rhs, x, work, None)   # without probes
+        cb.launch(plain, diag, lower, rhs, x, work)   # without probes
     start.record()
     for _ in range(20):
-        cb.launch(plain, diag, lower, rhs, x, work, None)
+        cb.launch(plain, diag, lower, rhs, x, work)
     end.record()
     torch.cuda.synchronize()
-    out = {"B": B, "N": N, "rel_err": rel,
-           "kernel_ms": start.elapsed_time(end) / 20,
-           "kcycles_per_frame": {p: round(float(v) / 1e3, 2)
-                                 for p, v in zip(PHASES, per_frame)},
-           "kcycles_per_frame_total": round(float(per_frame[:8].sum()) / 1e3,
-                                            2),
-           "device": torch.cuda.get_device_name(0)}
-    return out
+    return {"B": B, "N": N, "rel_err": rel,
+            "kernel_ms": start.elapsed_time(end) / 20,
+            "kcycles_per_frame": {p: round(float(v) / 1e3, 2)
+                                  for p, v in zip(PHASES, per_frame)},
+            "kcycles_per_frame_total": round(float(per_frame.sum()) / 1e3, 2),
+            "device": torch.cuda.get_device_name(0)}
 
 
 def main():

@@ -30,6 +30,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .banded import BlockBanded, backward_error, row_sum_norm, to_dense
@@ -65,9 +66,8 @@ def _nvcc() -> str:
 def build(defines: tuple = ()) -> Path:
     """Compile the kernel into ``build/kernels/`` (keyed by the source's
     hash and the flags, so an edited source never loads a stale library).
-    ``defines`` are extra ``-D`` macros (the phase probe of
-    ``ops/banded_probe.py``; the main path passes none). Returns the shared
-    library's path."""
+    ``defines`` are extra ``-D`` macros: only the phase probe of
+    ``ops/banded_probe.py`` passes one. Returns the shared library's path."""
     global build_log
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     src = SOURCE.read_bytes()
@@ -86,21 +86,20 @@ def build(defines: tuple = ()) -> Path:
     return out
 
 
-def load_library(defines: tuple = ()):
-    """Build (if needed) and bind the kernel's C entry point."""
-    lib = ctypes.CDLL(str(build(defines)))
+def load_library(path: Path):
+    """Bind the kernel's C entry point in the library at ``path`` and allow
+    the kernel its shared memory on the current device (once, here, not per
+    launch)."""
+    lib = ctypes.CDLL(str(path))
     fn = lib.banded_solve_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    err = lib.banded_solve_init()
+    if err != 0:
+        raise RuntimeError(f"banded_solve kernel setup failed: CUDA error "
+                           f"{err}")
     return lib
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        _lib = load_library()
-    return _lib
 
 
 def _check(diag: torch.Tensor, lower: torch.Tensor, rhs: torch.Tensor):
@@ -137,24 +136,48 @@ def solve(diag: torch.Tensor, lower: torch.Tensor, rhs: torch.Tensor
         return x
     work = torch.empty((B, N, BW + 1, D, D), dtype=rhs.dtype,
                        device=rhs.device)
-    launch(_load(), diag, lower, rhs, x, work, None)
+    with torch.cuda.device(rhs.device):
+        lib = _load()
+    launch(lib, diag, lower, rhs, x, work)
     launches += 1
     return x
 
 
-def launch(lib, diag, lower, rhs, x, work, probe) -> None:
+def _load():
+    """The main path's library, built and bound at first use."""
+    global _lib
+    if _lib is None:
+        _lib = load_library(build())
+    return _lib
+
+
+def launch(lib, diag, lower, rhs, x, work) -> None:
     """One launch of the kernel in ``lib`` on the current stream; raises if
-    it was refused. ``probe`` is the phase-probe buffer or None."""
+    it was refused."""
     B, N = rhs.shape[0], rhs.shape[1]
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream(rhs.device).cuda_stream
         err = lib.banded_solve_f32(
             diag.data_ptr(), lower.data_ptr(), rhs.data_ptr(), x.data_ptr(),
-            work.data_ptr(), None if probe is None else probe.data_ptr(), B,
-            N, stream)
+            work.data_ptr(), B, N, stream)
     if err != 0:
         raise RuntimeError(f"banded_solve kernel launch failed: CUDA error "
                            f"{err}")
+
+
+def random_systems(B: int, N: int, seed: int, device) -> list:
+    """Block-diagonally dominant SPD systems in the kernel's layout, float32
+    on ``device``, from a numpy seed (the kernel's tests, the chip check and
+    the phase probe)."""
+    rng = np.random.default_rng(seed)
+    lower = 0.02 * rng.normal(size=(B, BW, N, D, D))
+    for k in range(1, BW + 1):
+        lower[:, k - 1, max(N - k, 0):] = 0.0
+    sym = rng.normal(size=(B, N, D, D))
+    diag = 0.1 * (sym + np.swapaxes(sym, -1, -2)) + 20.0 * np.eye(D)
+    rhs = rng.normal(size=(B, N, D))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (diag, lower, rhs)]
 
 
 def solve_reference(diag: torch.Tensor, lower: torch.Tensor,

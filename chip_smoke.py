@@ -14,11 +14,12 @@ Phases (any failure exits nonzero):
    normal systems of the slice's own problems; relative error <= 7e-4.
    At the LM loop's small dampings (lam = 1e-6, 1e-12; 10x64, 30x64) each
    lane is NaN or has a normwise backward error <= 1e-5, and every lane
-   that is positive definite by a float32 margin is finite. An indefinite
-   lane and an all-NaN lane come back NaN with the other lanes
-   bit-identical. Kernel, plain, scan, CR and one-call library
+   that is positive definite by a float32 margin is finite, and the kernel
+   has no more NaN lanes than the plain float32 substitution on the same
+   inputs. An indefinite lane and an all-NaN lane come back NaN with the
+   other lanes bit-identical. Kernel, plain, scan, CR and one-call library
    (``torch.linalg.solve`` on the dense matrix) times; the bound from the
-   kernel's FLOPs and the bytes the solve must move.
+   FLOPs and bytes the solve needs.
 4. main    — stage 1 of the bench: 10 procedural monocular problems padded
    to 64 frames, ``make_kinematic_multistart`` once (warm-up, with the
    kernel's launch count) and 3 timed repeats; one more run with the probe
@@ -26,8 +27,9 @@ Phases (any failure exits nonzero):
 5. agree   — the same problems with ``linear_solver="scan"``, and the JAX
    package's float32 stage-1 numbers (``tests/data/jax_stage1_f32.json``):
    mean MPJPE within 2 % of both.
-6. profile — one more stage-1 run under torch.profiler: the device's busy
-   share of the wall time and the kernel's share of device time.
+6. profile — one more stage-1 run under torch.profiler: device time, the
+   kernel's share of it, and the device's busy share of the unprofiled
+   stage-1 wall (phase 4's repeats).
 
 Before the last two lines: a JSON object with the kernel's launches, error,
 times and bound (at 10x64, and per shape), then the card's name and power
@@ -76,25 +78,6 @@ def cuda_ms(fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def random_spd_banded(B, N, seed, dev):
-    """Diagonally dominant SPD systems in the kernel's layout."""
-    g = torch.Generator().manual_seed(seed)
-    d = 54
-    lower = 0.3 * torch.randn(B, 3, N, d, d, generator=g, dtype=torch.float64)
-    for k in range(1, 4):
-        lower[:, k - 1, max(N - k, 0):] = 0.0
-    sym = 0.3 * torch.randn(B, N, d, d, generator=g, dtype=torch.float64)
-    sym = 0.5 * (sym + sym.mT)
-    rows = sym.abs().sum(-1) - sym.diagonal(dim1=-2, dim2=-1).abs()
-    for k in range(1, 4):
-        a = lower[:, k - 1].abs()
-        rows = rows + a.sum(-1).roll(k, 1) * (torch.arange(N) >= k)[:, None]
-        rows = rows + a.sum(-2)
-    diag = sym + torch.diag_embed(rows + 1.0)
-    rhs = torch.randn(B, N, d, generator=g, dtype=torch.float64)
-    return diag.to(dev), lower.to(dev), rhs.to(dev)
-
-
 def normal_systems(B, N, dev, lam=1e-2):
     """Damped, Jacobi-scaled normal systems (exactly what
     ``gn._scaled_solve`` hands the kernel) of the slice's problems at q0,
@@ -129,32 +112,30 @@ def normal_systems(B, N, dev, lam=1e-2):
     return (Hs.diag.contiguous(), Hs.lower.contiguous(), rhs.contiguous())
 
 
-def kernel_flops(N):
-    """Floating-point operations of one system's solve by the kernel's own
-    algorithm (csrc/banded_solve.cu), counted from its loops: per frame the
-    54x54x54 products (L[t,t-j] = M_j X^T, the M_j updates, the Schur
-    update), the blocked Cholesky and inverse of the diagonal block (three
-    18x18 factors and inverses, fourteen 18x18x18 products), and both
-    substitutions as matvecs."""
-    big = {0: 0, 1: 2, 2: 5, 3: 9}           # 54^3 products per frame by nb
-    p = 18
-    chol_inv = 3 * (p ** 3 / 3 + p ** 3 / 3) + 14 * 2 * p ** 3
+def solve_flops(N):
+    """Floating-point operations that one system's banded Cholesky solve
+    needs (not what the kernel does: its products with the triangular
+    inverse are dense). Per frame t with nb = min(t, 3) earlier and nbb =
+    min(N-1-t, 3) later neighbours: the 54x54 Cholesky (54^3/3), nb
+    triangular solves for L[t,t-j] (54^3 each), nb(nb-1)/2 products for the
+    M_j updates (2 54^3 each), nb symmetric Schur updates (54^2 55 each), and
+    the two substitutions (54^2 for the triangle, 2 54^2 per neighbour)."""
+    d = 54
     total = 0.0
     for t in range(N):
-        nb = min(t, 3)
-        nbb = min(N - 1 - t, 3)              # backward terms of frame t
-        total += (big[nb] * 2 * 54 ** 3 + chol_inv
-                  + (nb + nbb) * 2 * 54 * 54 + 2 * 54 * 55)
+        nb, nbb = min(t, 3), min(N - 1 - t, 3)
+        total += (d ** 3 / 3 + nb * d ** 3 + nb * (nb - 1) // 2 * 2 * d ** 3
+                  + nb * d * d * (d + 1) + 2 * d * d + 2 * (nb + nbb) * d * d)
     return total
 
 
 def bound(B, N):
     """(bound_ms, bound_by): the larger of the bytes the solve must move
-    (inputs read once, x written once) over HBM bandwidth and the kernel's
-    FLOPs over the float32 (non-tensor-core) peak."""
+    (inputs read once, x written once) over HBM bandwidth and the FLOPs it
+    needs (``solve_flops``) over the float32 (non-tensor-core) peak."""
     nbytes = 4 * B * N * (4 * 54 * 54 + 2 * 54)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = B * kernel_flops(N) / PEAK_F32_FLOP_S * 1e3
+    t_ops = B * solve_flops(N) / PEAK_F32_FLOP_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations")
 
 
@@ -184,8 +165,8 @@ def phase_kernel(dev, results):
             if kind == "normal":
                 d32, l32, r32 = normal_systems(B, N, dev)
             else:
-                d32, l32, r32 = (x.float().contiguous() for x in
-                                 random_spd_banded(B, N, B * 1000 + N, dev))
+                d32, l32, r32 = cuda_banded.random_systems(B, N, B * 1000 + N,
+                                                           dev)
             x = cuda_banded.solve(d32, l32, r32)
             torch.cuda.synchronize()
             ref = cuda_banded.solve_reference(d32.double(), l32.double(),
@@ -225,7 +206,9 @@ def phase_kernel(dev, results):
                                      f"at {(B, N)} {kind}")
     # the LM loop's small dampings: float32 forward error cannot reach the
     # bar there (condition 1e6-1e9; at 1e-12 the float32 systems are
-    # indefinite), so each lane is NaN or has a small backward error
+    # indefinite), so each lane is NaN or has a small backward error, and
+    # the kernel fails no more lanes than the plain float32 substitution
+    # on the same inputs
     hard = []
     for B, N in SHAPES[:2]:
         for lam in (1e-6, 1e-12):
@@ -254,6 +237,9 @@ def phase_kernel(dev, results):
                     raise AssertionError(f"kernel at lam={lam} {(B, N)}: "
                                          f"{row}")
             log(f"# kernel {row}")
+            if row["kernel"]["nan_lanes"] > row["plain_f32"]["nan_lanes"]:
+                raise AssertionError(f"kernel fails more lanes than the "
+                                     f"plain float32 solve: {row}")
             hard.append(row)
     results["kernel_small_damping"] = hard
     diag, lower, rhs = normal_systems(10, 64, dev)
@@ -358,10 +344,11 @@ def probe_finish_split(fte, q0b, batched):
 
 
 def phase_profile(ctx, results):
-    """One more stage-1 run under torch.profiler: the device's busy share of
-    the wall time (sum of kernel times on the one stream over the host
-    clock), the banded-solve kernel's share of device time, and the count
-    of kernel launches."""
+    """One more stage-1 run under torch.profiler: the sum of kernel times on
+    the one stream, the banded-solve kernel's share of it, and the count of
+    kernel launches. The device's busy share is that device time over the
+    mean wall of phase 4's unprofiled repeats (the profiler's own event
+    recording stretches the profiled wall, which is reported beside it)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
@@ -384,7 +371,11 @@ def phase_profile(ctx, results):
         n += 1
         if "banded_solve_kernel" in ev.name:
             solve_us += us
-    out = {"wall_s": wall_s, "device_busy_share": dev_us / 1e6 / wall_s,
+    wall_unprofiled_s = float(np.mean(results["main"]["repeat_s"]))
+    out = {"wall_unprofiled_s": wall_unprofiled_s,
+           "device_busy_share": dev_us / 1e6 / wall_unprofiled_s,
+           "wall_profiled_s": wall_s,
+           "device_busy_share_of_profiled_wall": dev_us / 1e6 / wall_s,
            "device_s": dev_us / 1e6, "banded_solve_s": solve_us / 1e6,
            "banded_solve_share_of_device": solve_us / max(dev_us, 1e-9),
            "device_kernel_launches": n}

@@ -9,14 +9,14 @@ Tolerance: float32 kernel vs the float64 plain version, relative to the
 largest entry, <= 7e-4 (the JAX Pallas kernel's bar against its scan). On
 the solver's normal systems at lam = 1e-12 (float32-rounded, they are
 indefinite) a lane is either NaN or has a normwise backward error <= 1e-5,
-and every lane that is positive definite by a float32 margin is finite
-(``cuda_banded.solve_quality``).
+every lane that is positive definite by a float32 margin is finite
+(``cuda_banded.solve_quality``), and the kernel has no more NaN lanes than
+the plain float32 substitution (``solve_reference``) on the same inputs.
 """
 import pytest
 import torch
 
 from cheetah_pose_estimation_tpu_torch.ops import cuda_banded as cb
-from cheetah_pose_estimation_tpu_torch.ops.banded_probe import random_systems
 
 
 def _cuda():
@@ -30,7 +30,7 @@ def _cuda():
                                  (2, 1), (4, 7)])
 def test_kernel_matches_plain(B, N):
     dev = _cuda()
-    diag, lower, rhs = random_systems(B, N, B * 1000 + N, dev)
+    diag, lower, rhs = cb.random_systems(B, N, B * 1000 + N, dev)
     before = cb.launches
     x = cb.solve(diag, lower, rhs)
     torch.cuda.synchronize()
@@ -42,7 +42,7 @@ def test_kernel_matches_plain(B, N):
 @pytest.mark.gpu
 def test_kernel_nan_lane_and_rejects():
     dev = _cuda()
-    diag, lower, rhs = random_systems(4, 8, 0, dev)
+    diag, lower, rhs = cb.random_systems(4, 8, 0, dev)
     ok = cb.solve(diag, lower, rhs)
     diag[2, 3] = -torch.eye(54, device=dev)
     x = cb.solve(diag, lower, rhs)
@@ -77,3 +77,5 @@ def test_kernel_on_normal_systems_lam_1e12():
     assert (qual["backward"][fin] <= 1e-5).all(), qual
     assert fin[qual["spd_margin"]].all(), qual
     assert torch.isnan(x[~fin]).all()
+    plain_nan = ~torch.isfinite(cb.solve_reference(*f32)).all(2).all(1)
+    assert int((~fin).sum()) <= int(plain_nan.sum())
