@@ -1,10 +1,12 @@
-"""Carry a JAX-package problem across into the port.
+"""Carry a JAX-package problem and its trained priors across into the port.
 
 The port's ``KinematicData`` / ``CameraSet`` / ``GMMPrior`` / ``ARAnchor``
 have the JAX package's fields in the same order, so a problem built by the
 JAX package converts leaf by leaf: each leaf is taken as ``np.asarray(leaf)``
 (nothing of JAX is imported here) and becomes a tensor on ``device``.
-Tests use this to make both packages solve byte-identical problems.
+Tests use this to make both packages solve byte-identical problems. The
+trained priors (``GMMParams``, the solver's ``GMMPrior``, ``MotionModel``)
+are this system's weights and carry across the same way.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .priors import armodel, gmm
 from .solver import kinematic as kin
 from .utils.device import DeviceLike, resolve_device
 
@@ -48,3 +51,27 @@ def kinematic_problem(data, q0, device: DeviceLike = None,
         return torch.as_tensor(a, dtype=dtype, device=dev)
 
     return _convert(data, leaf), leaf(q0)
+
+
+def gmm_params(params, device: DeviceLike = None) -> gmm.GMMParams:
+    """JAX ``GMMParams`` (weights, means, covs) -> port float64 tensors."""
+    dev = resolve_device(device)
+    return gmm.GMMParams(*[torch.tensor(np.asarray(x), dtype=torch.float64,
+                                        device=dev) for x in params])
+
+
+def gmm_prior(prior, B: int, device: DeviceLike = None,
+              dtype: torch.dtype = torch.float32) -> kin.GMMPrior:
+    """A solver ``GMMPrior`` with array leaves and no trial axis (the JAX
+    package's or the port's ``to_solver_prior``) -> tensors broadcast to B
+    trials: means (B, K, 22), prec (B, K, 22, 22), log_norm (B, K)."""
+    dev = resolve_device(device)
+    return kin.GMMPrior(*[torch.as_tensor(np.asarray(x), dtype=dtype,
+                                          device=dev).expand(
+        (B,) + np.shape(x)).contiguous() for x in prior])
+
+
+def motion_model(mm) -> armodel.MotionModel:
+    """JAX ``MotionModel`` -> the port's (numpy fields, same names)."""
+    return armodel.MotionModel(**{
+        f: getattr(mm, f) for f in armodel.MotionModel.__dataclass_fields__})

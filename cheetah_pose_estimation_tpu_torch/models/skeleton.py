@@ -23,7 +23,8 @@ from .params import LINK_INDEX, LINK_NAMES, N_LINKS, NQ, SubjectParams
 __all__ = ["LINK_NAMES", "MARKERS", "N_MARKERS", "fk_markers",
            "fk_markers_linear", "fk_markers_and_jacobian", "joint_residuals",
            "joint_residuals_and_jacobian", "com_position",
-           "marker_coefficients"]
+           "marker_coefficients", "A_REL", "REL_MASK", "NX",
+           "relative_pose"]
 
 MARKERS = (
     "nose", "r_eye", "l_eye", "neck_base", "spine", "tail_base", "tail1",
@@ -310,3 +311,51 @@ def joint_residuals_and_jacobian(q: torch.Tensor, jacobian: bool = True):
 
 def _ey(q: torch.Tensor) -> torch.Tensor:
     return torch.tensor([0.0, 1.0, 0.0], dtype=q.dtype, device=q.device)
+
+
+# ---------------------------------------------------------------------------
+# Relative ("pose") coordinates x in R^28
+# ---------------------------------------------------------------------------
+
+def _build_relative_maps():
+    """Constant linear map q (54) -> stacked relative angles (54), plus the
+    28-dim mask of the reduced pose (base 6, bodyF and neck angles, tail
+    theta/psi, every leg's theta)."""
+    A = np.zeros((54, 54))
+    row = 0
+    for j in range(6):                     # base: x y z phi theta psi
+        A[row, j] = 1.0
+        row += 1
+    pairs = [  # (plus, minus)
+        ("bodyF", "base"), ("neck", "bodyF"), ("base", "tail0"),
+        ("tail0", "tail1"),
+        ("bodyF", "UFL"), ("UFL", "LFL"), ("LFL", "HFL"),
+        ("bodyF", "UFR"), ("UFR", "LFR"), ("LFR", "HFR"),
+        ("base", "UBL"), ("UBL", "LBL"),
+        ("base", "UBR"), ("UBR", "LBR"),
+        ("LBL", "HBL"), ("LBR", "HBR"),
+    ]
+    for plus, minus in pairs:
+        for k in range(3):
+            A[row, _angle_col(_L[plus]) + k] += 1.0
+            A[row, _angle_col(_L[minus]) + k] -= 1.0
+            row += 1
+    assert row == 54
+    mask = np.zeros(54, dtype=bool)
+    mask[0:12] = True                      # base 6 + bodyF 3 + neck 3
+    mask[[13, 14, 16, 17]] = True          # tail0/tail1 theta+psi
+    for j in range(18, 54, 3):             # all legs: theta only
+        mask[j + 1] = True
+    assert mask.sum() == 28
+    return A, mask
+
+
+_A_REL_FULL, REL_MASK = _build_relative_maps()
+A_REL = _A_REL_FULL[REL_MASK]  # (28, 54)
+NX = A_REL.shape[0]
+
+
+def relative_pose(q: torch.Tensor) -> torch.Tensor:
+    """q (..., 54) -> reduced relative pose x (..., 28), x = A_REL q."""
+    A = torch.as_tensor(A_REL, dtype=q.dtype, device=q.device)
+    return torch.einsum("ij,...j->...i", A, q)

@@ -44,8 +44,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches made through :func:`solve` (the main path's count)
+# kernel launches made through :func:`solve` (the main path's count), in
+# all and per (B, N) shape; :func:`reset_launches` zeroes both
 launches = 0
+launches_by_shape = {}
 # nvcc's output of this process's build (registers, shared memory, spills)
 build_log = ""
 
@@ -140,7 +142,14 @@ def solve(diag: torch.Tensor, lower: torch.Tensor, rhs: torch.Tensor
         lib = _load()
     launch(lib, diag, lower, rhs, x, work)
     launches += 1
+    launches_by_shape[B, N] = launches_by_shape.get((B, N), 0) + 1
     return x
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    launches_by_shape.clear()
 
 
 def _load():

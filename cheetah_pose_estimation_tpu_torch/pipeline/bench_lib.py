@@ -6,10 +6,16 @@ default-mode problems over procedural gallops (the fallback of
 ``load_reference_trajectories`` when the reference test set is absent),
 and the per-trial quality metrics. Problem building is host work in
 numpy/float64; ``build_batch`` puts the stacked batch on ``device``.
+
+The data-driven stage's priors are trained on the AcinoSet pose dataset in
+production; while it is absent from the repository they are trained on a
+procedural pose table (:func:`procedural_pose_table`) from the bench's
+gallop generator, on seeds disjoint from the bench trials'. Numbers from
+priors trained on it say nothing about AcinoSet.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,9 +25,16 @@ from ..models import noise as noise_tables
 from ..models import params as P
 from ..models import skeleton as sk
 from ..parallel import batch as pbatch
+from ..priors import armodel, gmm
+from ..priors.dataset import PoseTable
 from ..solver import kinematic as kin
 from ..utils.device import DeviceLike
 from . import initialization as init
+
+# seeds of the procedural prior-training and validation tables (the bench
+# trials use seeds 0-9)
+TRAIN_SEEDS = tuple(range(100, 140))
+VAL_SEEDS = tuple(range(200, 210))
 
 
 def load_reference_trajectories(max_trials: Optional[int] = None):
@@ -109,3 +122,40 @@ def score_per_trial(qs_batch: np.ndarray, trials, fpss, subject):
         cvr = float(np.sqrt(np.mean(np.sum((cv_r - cv_g) ** 2, axis=1))))
         rows.append((mpe, mpjpe, cvr))
     return rows
+
+
+def procedural_pose_table(seeds: Sequence[int], n_frames: int = 240
+                          ) -> PoseTable:
+    """Pose table of one segment per seed: the rows of ``relative_pose(q)``
+    for q = ``gallop_trajectory(n_frames, seed=s)`` plus a constant offset
+    on the angle columns 3:54, drawn as
+    ``default_rng(10_000 + s).normal(scale=0.05, size=51)``. Without the
+    offset every seed traces one gait curve plus 0.005 rad of noise, and the
+    GMM over its relative angles is either inert or extremely stiff."""
+    rows = []
+    for s in seeds:
+        q = syn.gallop_trajectory(n_frames, seed=s)
+        q[:, 3:54] += np.random.default_rng(10_000 + s).normal(scale=0.05,
+                                                               size=51)
+        rows.append(sk.relative_pose(torch.as_tensor(q)).numpy())
+    return PoseTable(index=np.tile(np.arange(n_frames), len(seeds)),
+                     data=np.concatenate(rows))
+
+
+class Priors(NamedTuple):
+    gmm_params: gmm.GMMParams
+    gmm_prior: kin.GMMPrior       # numpy leaves, no trial axis
+    motion_model: armodel.MotionModel
+
+
+def train_priors(train: PoseTable, val: PoseTable,
+                 device: DeviceLike = None) -> Priors:
+    """The bench's data-driven priors: a 5-component GMM over the 22
+    relative joint angles (seed 42, 200 EM steps) and the lasso AR model
+    over the 28-dim relative pose with window 4 (alpha 1e-2), trained in
+    float64 on ``device``."""
+    params = gmm.fit(train.data[:, 6:28], n_components=5, seed=42,
+                     device=device)
+    mm = armodel.train_motion_model(train, window_size=4, lasso=True,
+                                    validation=val, device=device)
+    return Priors(params, gmm.to_solver_prior(params), mm)

@@ -1,0 +1,176 @@
+"""Monocular depth line-scan and its body-scale constraint.
+
+Port of the parts of ``cheetah_pose_estimation_tpu/pipeline/depth_anchor.py``
+that the data-driven stage runs: the camera rays, the body-scale depth
+channel and the line-scan. The reprojection cost is nearly flat along the
+viewing ray, so the scan re-solves the trajectory at candidate depth
+offsets and keeps a clear winner. The ray and scale helpers are host numpy
+in float64; the scan runs on the device of the tensors it is given. The
+ground-plane correction (``ray_depth_correction`` and its stance
+detection) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..models import skeleton as sk
+from ..models.params import SubjectParams
+from ..ops import camera as cam_ops
+
+
+def camera_ray(q: np.ndarray, R_cam: np.ndarray,
+               t_cam: np.ndarray) -> np.ndarray:
+    """(N, 3) unit rays from the camera centre through the per-frame base
+    position (x_cam = R x + t, so the centre is c = -R^T t)."""
+    t = np.asarray(t_cam, np.float64).reshape(3)
+    c = -np.asarray(R_cam, np.float64).T @ t
+    d = np.asarray(q, np.float64)[:, :3] - c[None]
+    n = np.linalg.norm(d, axis=1, keepdims=True)
+    return d / np.maximum(n, 1e-9)
+
+
+MIN_MARKERS = 8       # detections a frame needs to carry a scale signal
+MAX_SHIFT_M = 1.5     # clip of the body-scale shift
+
+
+def scale_depth_shift(q: np.ndarray, subject: SubjectParams,
+                      meas: np.ndarray, weight: np.ndarray,
+                      K: np.ndarray, D_dist: np.ndarray,
+                      R_cam: np.ndarray, t_cam: np.ndarray,
+                      min_frames: int = 16,
+                      max_spread_ratio: float = 0.6) -> float:
+    """Per-trial depth shift (metres along the viewing ray of a fisheye
+    camera, + away from it) implied by apparent body scale: with fixed
+    segment lengths the projected marker spread scales as 1/depth, so per
+    frame shift = d_rec (size_rec / size_meas - 1), sizes being the weighted
+    RMS spreads of the gated detections and of the reprojected markers. The
+    frames' shifts are combined by a count-weighted median and clipped to
+    +-1.5 m; frames with fewer than 8 detections are dropped, and the
+    channel abstains (0.0) with fewer than ``min_frames`` frames or a
+    spread (MAD) above ``max_spread_ratio`` x |median|."""
+    q = np.asarray(q, np.float64)
+    N = q.shape[0]
+    pts = sk.fk_markers(torch.as_tensor(q), subject).reshape(-1, 3)
+    uv_rec = cam_ops.project_fisheye(
+        pts, *[torch.as_tensor(np.asarray(a, np.float64))
+               for a in (K, D_dist, R_cam, t_cam)]).numpy().reshape(N, -1, 2)
+    meas = np.asarray(meas, np.float64)       # (N, L, 2, W) or (N, L, 2)
+    w = np.asarray(weight, np.float64)        # (N, L, W) or (N, L)
+    if meas.ndim == 4:                        # collapse the W axis: best det
+        wbest = w.argmax(axis=-1)
+        meas = np.take_along_axis(
+            meas, wbest[:, :, None, None], axis=-1)[..., 0]
+        w = np.max(w, axis=-1)
+    t = np.asarray(t_cam, np.float64).reshape(3)
+    c = -np.asarray(R_cam, np.float64).T @ t
+    d_rec = np.linalg.norm(q[:, :3] - c[None], axis=1)         # (N,)
+    shifts, wts = [], []
+    for i in range(N):
+        m = w[i] > 0
+        if m.sum() < MIN_MARKERS:
+            continue
+        wm = w[i][m]
+        mu_m = (wm[:, None] * meas[i][m]).sum(0) / wm.sum()
+        mu_r = (wm[:, None] * uv_rec[i][m]).sum(0) / wm.sum()
+        s_m = np.sqrt((wm[:, None] * (meas[i][m] - mu_m) ** 2).sum()
+                      / wm.sum())
+        s_r = np.sqrt((wm[:, None] * (uv_rec[i][m] - mu_r) ** 2).sum()
+                      / wm.sum())
+        if s_m < 1e-6 or s_r < 1e-6:
+            continue
+        shifts.append(d_rec[i] * (s_r / s_m - 1.0))
+        wts.append(float(m.sum()))
+    if len(shifts) < min_frames:
+        return 0.0
+    shifts = np.asarray(shifts)
+    order = np.argsort(shifts)
+    cw = np.cumsum(np.asarray(wts)[order])
+    med = float(shifts[order[np.searchsorted(cw, 0.5 * cw[-1])]])
+    mad = float(np.median(np.abs(shifts - med)))
+    if mad > max_spread_ratio * max(abs(med), 1e-9):
+        return 0.0
+    return float(np.clip(med, -MAX_SHIFT_M, MAX_SHIFT_M))
+
+
+def scale_median(q: np.ndarray, subject: SubjectParams,
+                 meas: np.ndarray, weight: np.ndarray,
+                 K: np.ndarray, D_dist: np.ndarray,
+                 R_cam: np.ndarray, t_cam: np.ndarray) -> float:
+    """Raw signed body-scale median (metres along the ray): no spread gate,
+    no noise floor, 8 frames suffice. The line-scan uses its sign (veto) and
+    its magnitude (candidate bound)."""
+    return scale_depth_shift(q, subject, meas, weight, K, D_dist, R_cam,
+                             t_cam, max_spread_ratio=1e9, min_frames=8)
+
+
+# candidate depth offsets of the line-scan (metres along the rays), the
+# relative cost win a candidate needs over the zero shift, and the
+# body-scale median below which the scale constraint is off
+SCAN_SHIFTS = (-0.5, -0.4, -0.3, -0.2, -0.1, 0.0, 0.1)
+SCAN_MARGIN = 0.01
+DEAD_ZONE_M = 0.05
+
+
+def make_depth_linescan(subject: SubjectParams,
+                        stages: Tuple = ((1.0, 60),)):
+    """Monocular depth line-scan: re-solve at candidate depths, keep the
+    clear winner.
+
+    Every trial is shifted by each offset of ``SCAN_SHIFTS`` along its
+    per-frame camera rays and re-solved with the prior-free judge config (a
+    fixed ``stages`` schedule); all 7 x B lanes are one batch. Per trial the
+    best candidate is accepted only if its cost beats the zero-shift lane's
+    by more than ``SCAN_MARGIN`` (relative) and lies inside the grid (an
+    edge pick is not bracketed); otherwise the input trajectory ships
+    unchanged. An optional per-trial ``scale_med`` (from
+    :func:`scale_median`), where its |median| clears ``DEAD_ZONE_M``,
+    restricts candidates to its sign and to 2 |median| + 0.15 m.
+
+    Returns ``scan(q_in, batched, rays, scale_med=None) -> (q_out (B,N,54)
+    tensor, shift (B,) numpy)``."""
+    from ..solver import kinematic as kin
+
+    fte = kin.KinematicFTE(kin.KinematicConfig(fisheye=True, robust=True),
+                           subject)
+    run = fte.make_solver(stages=stages, driver="fixed")
+    offs = SCAN_SHIFTS
+    ZI = offs.index(0.0)
+    Kn = len(offs)
+
+    def scan(q_in: torch.Tensor, batched, rays: np.ndarray, scale_med=None):
+        B = q_in.shape[0]
+        raysb = torch.as_tensor(np.asarray(rays), dtype=q_in.dtype,
+                                device=q_in.device)
+        qks = torch.cat([torch.cat([q_in[..., :3] + s * raysb,
+                                    q_in[..., 3:]], -1) for s in offs])
+        rep = kin.map_data(lambda x: torch.cat([x] * Kn), batched)
+        st = run(qks, rep)
+        cost = st.cost.double().cpu().numpy().reshape(Kn, B)
+        c = np.where(np.isfinite(cost), cost, np.inf)
+        offv = np.asarray(offs)
+        if scale_med is not None:
+            med = np.asarray(scale_med, np.float64)
+            act = np.abs(med) > DEAD_ZONE_M
+            sign_ok = (offv[:, None] == 0.0) \
+                | (np.sign(offv)[:, None] == np.sign(med)[None, :])
+            mag_ok = np.abs(offv)[:, None] \
+                <= 2.0 * np.abs(med)[None, :] + 0.15
+            allowed = ~act[None, :] | (sign_ok & mag_ok)
+            c = np.where(allowed, c, np.inf)
+        best = np.argmin(c, axis=0)
+        thr = c[ZI] - SCAN_MARGIN * np.abs(c[ZI])
+        accept = c[best, np.arange(B)] < thr
+        accept &= (best > 0) & (best < Kn - 1)
+        shift_out = np.where(accept, offv[best], 0.0)
+        if not accept.any():
+            return q_in, shift_out
+        qsol = st.q.reshape((Kn, B) + tuple(q_in.shape[1:]))
+        qf = qsol[torch.as_tensor(best, device=q_in.device),
+                  torch.arange(B, device=q_in.device)]
+        acc = torch.as_tensor(accept, device=q_in.device)[:, None, None]
+        return torch.where(acc, qf, q_in), shift_out
+
+    return scan

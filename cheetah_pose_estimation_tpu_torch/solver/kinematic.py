@@ -4,11 +4,12 @@ block-banded normal system.
 
 Port of ``cheetah_pose_estimation_tpu/solver/kinematic.py`` for the default
 configuration (``KinematicConfig()``: redescending measurement loss,
-joint-limit hinges, joint-manifold weld, Tikhonov floor, no priors). Every
-function takes a batch of trials: q (B, N, 54), ``KinematicData`` leaves with
-a leading trial axis, and a per-trial annealing scale (B,). The GMM, AR,
-ground-plane, base-anchor and live-shutter terms are not ported yet and
-raise ``NotImplementedError`` when switched on.
+joint-limit hinges, joint-manifold weld, Tikhonov floor) and for the
+data-driven mode's terms: the GMM pose prior, the AR motion anchor and the
+base-pose anchor. Every function takes a batch of trials: q (B, N, 54),
+``KinematicData`` leaves with a leading trial axis, and a per-trial
+annealing scale (B,). The ground-plane, live-shutter and huber terms are not
+ported yet and raise ``NotImplementedError`` when switched on.
 """
 from __future__ import annotations
 
@@ -37,15 +38,17 @@ class CameraSet(NamedTuple):
 
 
 class GMMPrior(NamedTuple):
+    """Gaussian-mixture pose prior over the 22 relative joint angles."""
     means: torch.Tensor      # (B, K, 22)
-    prec: torch.Tensor       # (B, K, 22, 22)
-    log_norm: torch.Tensor   # (B, K)
+    prec: torch.Tensor       # (B, K, 22, 22) inverse covariances
+    log_norm: torch.Tensor   # (B, K) log w_k - 0.5 log det(2 pi Sigma_k)
 
 
 class ARAnchor(NamedTuple):
+    """Fixed AR motion-model predictions the relative pose is pulled to."""
     y_pred: torch.Tensor     # (B, N, 28)
-    weight: torch.Tensor     # (B, 28)
-    valid: torch.Tensor      # (B, N)
+    weight: torch.Tensor     # (B, 28) = 1/sigma^2 (0 disables a dimension)
+    valid: torch.Tensor      # (B, N) 1 for frames with an active anchor
 
 
 class KinematicData(NamedTuple):
@@ -66,7 +69,11 @@ class KinematicData(NamedTuple):
     sd_acc: torch.Tensor = np.zeros((1, 3))     # (B, N, 3)
     ground_z: torch.Tensor = np.zeros(())
     stance_w: torch.Tensor = np.zeros((1, 4))
+    # per-trial weight of the pose-prior term (B,): 1 on gate-accepted
+    # trials, 0 on rejected ones, so one solver serves both
     gmm_scale: torch.Tensor = np.ones(())
+    # reference base trajectory of the base-pose anchor, (B, N, 6) or
+    # (B, 1, 6)
     base_ref: torch.Tensor = np.zeros((1, 6))
 
 
@@ -241,13 +248,10 @@ class KinematicFTE:
 
     def __init__(self, config: KinematicConfig, subject: SubjectParams):
         unported = [name for name, on in (
-            ("use_gmm", config.use_gmm), ("use_ar", config.use_ar),
             ("live_shutter", config.live_shutter),
             ("ground/penetration/noslip", config.ground_weight > 0.0
              or config.penetration_weight > 0.0
              or config.noslip_weight > 0.0),
-            ("base_anchor", config.base_anchor_trans > 0.0
-             or config.base_anchor_rot > 0.0),
             ("loss=" + config.loss, config.loss != "redescending")) if on]
         if unported:
             raise NotImplementedError(
@@ -256,6 +260,10 @@ class KinematicFTE:
         self.subject = subject
         self._G, self._lo, self._hi = joint_limit_table(
             config.kinetic_dataset)
+        self._A22 = sk.A_REL[6:]  # (22, 54) relative joint angles
+        self._A28 = sk.A_REL      # (28, 54)
+        self._base_anchor = (config.base_anchor_trans > 0.0
+                             or config.base_anchor_rot > 0.0)
 
     def _const(self, a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(a, dtype=like.dtype, device=like.device)
@@ -318,21 +326,77 @@ class KinematicFTE:
             meas = (w_all * res) ** 2
         meas = meas.flatten(1).sum(1)
         model = acc_cost(q, data.h, data.acc_weight, data.frame_valid)
-        zero = q.new_zeros(q.shape[0])
-        penalty = self._limit_cost(q, data.frame_valid)
+        fv = data.frame_valid
+        pose = q.new_zeros(q.shape[0])
+        motion = q.new_zeros(q.shape[0])
+        if cfg.use_gmm:
+            x22 = torch.einsum("ij,btj->bti", self._const(self._A22, q), q)
+            pose = data.gmm_scale.to(q.dtype) * (
+                fv * self._gmm_neglog(x22, data.gmm)).sum(1)
+        if cfg.use_ar:
+            x28 = torch.einsum("ij,btj->bti", self._const(self._A28, q), q)
+            r = x28 - data.ar.y_pred
+            motion = (data.ar.valid[..., None] * data.ar.weight[:, None, :]
+                      * r * r).sum((1, 2))
+        penalty = self._limit_cost(q, fv)
         if cfg.weld_weight > 0.0:
             # continuation: soft joint manifold at wide annealing scales
             rw = sk.joint_residuals(q)
             penalty = penalty + _inv_pow4(s) * cfg.weld_weight * (
-                data.frame_valid[..., None] * rw * rw).sum((1, 2))
-        return {"measurement": meas, "model": model, "pose": zero,
-                "motion": zero, "limit": penalty}
+                fv[..., None] * rw * rw).sum((1, 2))
+        if self._base_anchor:
+            wb, rb = self._base_residual(q, data)
+            penalty = penalty + (fv[..., None] * wb * rb * rb).sum((1, 2))
+        return {"measurement": meas, "model": model, "pose": pose,
+                "motion": motion, "limit": penalty}
 
     def _cost_impl(self, q: torch.Tensor, data: KinematicData,
                    loss_scale=1.0) -> torch.Tensor:
         t = self.cost_terms(q, data, loss_scale)
         return (t["measurement"] + t["model"] + t["pose"] + t["motion"]
                 + t["limit"])
+
+    def _cost(self, q: torch.Tensor, data: KinematicData,
+              loss_scale=1.0) -> torch.Tensor:
+        """(B,) total cost, the LM loop's accept/reject arbiter."""
+        return self._cost_impl(q, data, loss_scale)
+
+    def objective(self, q: torch.Tensor, data: KinematicData
+                  ) -> torch.Tensor:
+        """(B,) reference-scaled objective: 1e-3 x the cost at scale 1
+        without the joint-limit penalty."""
+        return 1e-3 * (self._cost(q, data)
+                       - self._limit_cost(q, data.frame_valid))
+
+    # -- GMM pose prior ------------------------------------------------------
+    def _gmm_logpdf_terms(self, x22: torch.Tensor, gmm: GMMPrior
+                          ) -> torch.Tensor:
+        """(B, N, K) log w_k N(x; mu_k, P_k^-1) of x22 (B, N, 22), the
+        quadratic form in XLA's order: (P dx) first, then dx . (P dx)."""
+        dx = x22[:, :, None, :] - gmm.means[:, None]        # (B, N, K, 22)
+        Pdx = torch.einsum("bkij,bnkj->bnki", gmm.prec, dx)
+        quad = (dx * Pdx).sum(-1)
+        return gmm.log_norm[:, None, :] - 0.5 * quad
+
+    @staticmethod
+    def _log_eps(like: torch.Tensor) -> torch.Tensor:
+        return torch.log(torch.tensor(1e-12, dtype=like.dtype,
+                                      device=like.device))
+
+    def _gmm_neglog(self, x22: torch.Tensor, gmm: GMMPrior) -> torch.Tensor:
+        """(B, N) -log(p(x) + 1e-12)."""
+        lse = torch.logsumexp(self._gmm_logpdf_terms(x22, gmm), dim=-1)
+        return -torch.logaddexp(lse, self._log_eps(lse))
+
+    # -- base-pose anchor ----------------------------------------------------
+    def _base_residual(self, q: torch.Tensor, data: KinematicData):
+        """Weights (6,) and residuals (B, N, 6) of the base-pose anchor."""
+        cfg = self.config
+        wb = self._const(np.array([cfg.base_anchor_trans] * 3
+                                  + [cfg.base_anchor_rot] * 3), q)
+        rb = q[..., :6] - data.base_ref.to(q.dtype).expand(q.shape[0],
+                                                           q.shape[1], 6)
+        return wb, rb
 
     # -- joint limits --------------------------------------------------------
     def _limit_values(self, q: torch.Tensor):
@@ -382,6 +446,36 @@ class KinematicFTE:
         g = g + banded.matvec(H_acc, q)
         Hdiag = Hdiag + H_acc.diag
 
+        if cfg.use_gmm:
+            # d/dx of -log(p + eps) = p/(p+eps) sum_k gamma_k P_k (x - mu_k),
+            # curvature the EM/MM surrogate sum_k gamma_k P_k (PSD)
+            A22 = self._const(self._A22, q)
+            gmm = data.gmm
+            x22 = torch.einsum("ij,btj->bti", A22, q)
+            lt = self._gmm_logpdf_terms(x22, gmm)                 # (B, N, K)
+            lse = torch.logsumexp(lt, dim=-1)
+            e = torch.exp(lt - lt.amax(-1, keepdim=True))
+            gamma = e / e.sum(-1, keepdim=True)
+            factor = torch.exp(lse - torch.logaddexp(lse,
+                                                     self._log_eps(lse)))
+            dx = x22[:, :, None, :] - gmm.means[:, None]
+            gx = torch.einsum("bnkj,bkij->bni", gamma[..., None] * dx,
+                              gmm.prec)
+            wg = data.gmm_scale.to(q.dtype)[:, None] * factor \
+                * data.frame_valid                                # (B, N)
+            gx = gx * wg[..., None]
+            Hx = torch.einsum("bnk,bkij->bnij", gamma * wg[..., None],
+                              gmm.prec)
+            g = g + torch.einsum("ij,bti->btj", A22, gx)
+            Hdiag = Hdiag + A22.T @ (Hx @ A22)
+
+        if cfg.use_ar:
+            A28 = self._const(self._A28, q)
+            r = torch.einsum("ij,btj->bti", A28, q) - data.ar.y_pred
+            wv = data.ar.weight[:, None, :] * data.ar.valid[..., None]
+            g = g + 2.0 * torch.einsum("ij,bti->btj", A28, wv * r)
+            Hdiag = Hdiag + 2.0 * ((A28.T * wv[..., None, :]) @ A28)
+
         # joint-limit hinge (active-set quadratic)
         G, up, lo = self._limit_values(q)
         active = ((up > 0) | (lo > 0)).to(q.dtype)
@@ -397,6 +491,13 @@ class KinematicFTE:
             ww = (2.0 * cfg.weld_weight * _inv_pow4(s))[:, None, None]
             g = g + ww * fv * torch.einsum("btrj,btr->btj", Jw, rw)
             Hdiag = Hdiag + (ww * fv)[..., None] * (Jw.mT @ Jw)
+
+        if self._base_anchor:
+            # base-pose anchor: exact quadratic (diagonal blocks only)
+            wb, rb = self._base_residual(q, data)
+            g = torch.cat([g[..., :6] + 2.0 * fv * wb * rb, g[..., 6:]], -1)
+            Hb = torch.cat([2.0 * wb, wb.new_zeros(NQ - 6)])
+            Hdiag = Hdiag + fv[..., None] * torch.diag(Hb)
 
         # padded frames: identity anchor keeps H nonsingular; + Tikhonov
         pad = (1.0 - data.frame_valid)[..., None, None]

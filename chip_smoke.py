@@ -9,9 +9,10 @@ Phases (any failure exits nonzero):
    and CUDA versions; check that TF32 is off.
 2. build   — compile ``csrc/banded_solve.cu`` from this checkout.
 3. kernel  — the banded-solve kernel (float32) against its plain PyTorch
-   version in float64 on the card, at (B, N) = (10, 64), (30, 64), (1, 256),
-   on random SPD banded systems and on damped (lam = 1e-2), Jacobi-scaled
-   normal systems of the slice's own problems; relative error <= 7e-4.
+   version in float64 on the card, at (B, N) = (10, 64), (30, 64), (70, 64)
+   (the depth line-scan's 7 shifts x 10 trials), (1, 256), on random SPD
+   banded systems and on damped (lam = 1e-2), Jacobi-scaled normal systems
+   of the slice's own problems; relative error <= 7e-4.
    At the LM loop's small dampings (lam = 1e-6, 1e-12; 10x64, 30x64) each
    lane is NaN or has a normwise backward error <= 1e-5, and every lane
    that is positive definite by a float32 margin is finite, and the kernel
@@ -30,10 +31,25 @@ Phases (any failure exits nonzero):
 6. profile — one more stage-1 run under torch.profiler: device time, the
    kernel's share of it, and the device's busy share of the unprofiled
    stage-1 wall (phase 4's repeats).
+7. dd      — stage 1.5 of the bench, the data-driven mode. Priors: the
+   procedural pose tables, the port's priors trained on the card (set-up,
+   timed), held against the JAX-trained priors of
+   ``tests/data/jax_dd_inputs.npz`` (GMM score on the training table within
+   0.5 nats per sample, AR predictions on its windows within 1e-6). Main
+   path: phase 4's stage-1 result through ``run_data_driven`` with the
+   port's priors, once (warm-up, with the kernel's launches per shape, both
+   > 0, and each phase timed) and 2 timed repeats; per-trial MPE, MPJPE,
+   CoM-velocity, ``prior_ok`` and shifts. Agreement: ``run_data_driven`` from JAX's
+   float32 stage-1 trajectories with the JAX-trained priors (both from the
+   npz), mean MPJPE within 2 % of the JAX float64 dd run from the same
+   inputs (``tests/data/jax_stage15_f32.json``, ``f64``); the JAX float32
+   run's mean MPJPE, gate decisions and shifts are printed beside it.
+   Profile: one more dd run under torch.profiler.
 
-Before the last two lines: a JSON object with the kernel's launches, error,
-times and bound (at 10x64, and per shape), then the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.
+Before the last two lines: a JSON object with the kernel's launches (in all
+and per path and shape), error, times and bound (at 10x64, and per shape),
+then the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 import argparse
 import json
@@ -50,12 +66,18 @@ TOL_BACKWARD = 1e-5   # normwise backward error, float32 (eps 1.2e-7)
 PEAK_F32_FLOP_S = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 TOL_MPJPE = 0.02      # mean MPJPE agreement, relative
-SHAPES = ((10, 64), (30, 64), (1, 256))
+TOL_GMM_NATS = 0.5    # port vs JAX GMM, mean log-likelihood per sample
+TOL_AR = 1e-6         # port vs JAX AR predictions on the training windows
+SHAPES = ((10, 64), (30, 64), (70, 64), (1, 256))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the script began."""
+    print(f"{msg}  [t={time.perf_counter() - T0:.1f} s]", flush=True)
 
 
 def gpu_name_and_limit() -> str:
@@ -83,11 +105,13 @@ def normal_systems(B, N, dev, lam=1e-2):
     ``gn._scaled_solve`` hands the kernel) of the slice's problems at q0,
     annealing scale 1, damping ``lam`` (lam0 = 1e-2; the LM loop takes it
     down to lam_min = 1e-12). B = 30 replicates the 10 trials over the 3
-    heading restarts, like the probe. Float32, contiguous."""
+    heading restarts, like the probe; B = 70 over the 7 depth shifts along
+    the camera rays, like the line-scan. Float32, contiguous."""
     from cheetah_pose_estimation_tpu_torch.data import synthetic as syn
     from cheetah_pose_estimation_tpu_torch.models import params
     from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.pipeline import depth_anchor
     from cheetah_pose_estimation_tpu_torch.solver import gn
     from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
 
@@ -98,8 +122,17 @@ def normal_systems(B, N, dev, lam=1e-2):
             q0 = torch.cat([q0 + torch.zeros_like(q0).index_fill_(
                 2, torch.tensor([5], device=dev), o)
                 for o in pbatch.HEADING_RESTARTS])
+        elif B == 70:
+            q0n = q0.double().cpu().numpy()
+            rays = torch.as_tensor(np.stack([depth_anchor.camera_ray(
+                q0n[i], *[x[i, 0].cpu().numpy() for x in (batched.cam.R,
+                                                          batched.cam.t)])
+                for i in range(10)]), dtype=q0.dtype, device=dev)
+            q0 = torch.cat([torch.cat([q0[..., :3] + s * rays, q0[..., 3:]],
+                                      -1) for s in depth_anchor.SCAN_SHIFTS])
+        if B > 10:
             batched = kin.map_data(
-                lambda x: x.repeat((3,) + (1,) * (x.ndim - 1)), batched)
+                lambda x: x.repeat((B // 10,) + (1,) * (x.ndim - 1)), batched)
     else:
         d, q0n, _ = bench_lib.build_monocular_problem(
             syn.gallop_trajectory(N, seed=0), "acinoset", 120.0, seed=0)
@@ -274,12 +307,13 @@ def phase_main(dev, results):
     fte = kin.KinematicFTE(kin.KinematicConfig(), subject)
     run = pbatch.make_kinematic_multistart(fte)
 
-    cuda_banded.launches = 0
+    cuda_banded.reset_launches()
     t0 = time.perf_counter()
     st = run(q0b, batched)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = cuda_banded.launches
+    by_shape = dict(cuda_banded.launches_by_shape)
     if launches <= 0:
         raise AssertionError("the main path did not launch the kernel")
     times = []
@@ -308,11 +342,17 @@ def phase_main(dev, results):
     results["main"] = {"first_call_s": first_s, "repeat_s": times,
                        "s_per_trial": s_trial,
                        "trials_per_min": 60.0 / s_trial,
-                       "launches": launches, "split": split,
-                       "per_trial": rows,
+                       "launches": launches,
+                       "launches_by_shape": shape_keys(by_shape),
+                       "split": split, "per_trial": rows,
                        "final_cost": st.cost.tolist(),
                        "iterations": st.it.tolist()}
-    return launches, rows, (fte, batched, q0b, trials, fpss, subject)
+    return by_shape, rows, (fte, batched, q0b, trials, fpss, subject, st.q)
+
+
+def shape_keys(by_shape: dict) -> dict:
+    """{(B, N): n} -> {"BxN": n} (JSON keys)."""
+    return {f"{b}x{n}": c for (b, n), c in sorted(by_shape.items())}
 
 
 def probe_finish_split(fte, q0b, batched):
@@ -343,51 +383,209 @@ def probe_finish_split(fte, q0b, batched):
     return split
 
 
-def phase_profile(ctx, results):
-    """One more stage-1 run under torch.profiler: the sum of kernel times on
-    the one stream, the banded-solve kernel's share of it, and the count of
-    kernel launches. The device's busy share is that device time over the
-    mean wall of phase 4's unprofiled repeats (the profiler's own event
-    recording stretches the profiled wall, which is reported beside it)."""
+def profiled(fn, wall_unprofiled_s: float) -> dict:
+    """Run ``fn`` once under torch.profiler: the sum of kernel times on the
+    one stream, the banded-solve kernel's share of it, and the count of
+    kernel launches. The device's busy share is that device time over
+    ``wall_unprofiled_s``, the mean wall of unprofiled runs of the same work
+    (the profiler's own event recording stretches the profiled wall, which
+    is reported beside it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
-
-    fte, batched, q0b = ctx[:3]
-    run = pbatch.make_kinematic_multistart(fte)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(q0b, batched)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    # the profiler's raw events: building its Python event tree
+    # (prof.events()) takes minutes for the ~300k device events of a run
     dev_us, solve_us, n = 0.0, 0.0, 0
-    for ev in prof.events():
-        if ev.device_type.name != "CUDA":
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type().name != "CUDA":
             continue
-        us = ev.time_range.elapsed_us()
+        us = ev.duration_ns() / 1e3
         dev_us += us
         n += 1
-        if "banded_solve_kernel" in ev.name:
+        if "banded_solve_kernel" in ev.name():
             solve_us += us
-    wall_unprofiled_s = float(np.mean(results["main"]["repeat_s"]))
-    out = {"wall_unprofiled_s": wall_unprofiled_s,
-           "device_busy_share": dev_us / 1e6 / wall_unprofiled_s,
-           "wall_profiled_s": wall_s,
-           "device_busy_share_of_profiled_wall": dev_us / 1e6 / wall_s,
-           "device_s": dev_us / 1e6, "banded_solve_s": solve_us / 1e6,
-           "banded_solve_share_of_device": solve_us / max(dev_us, 1e-9),
-           "device_kernel_launches": n}
+    if n == 0:
+        raise AssertionError("the profiler saw no kernel on the card")
+    return {"wall_unprofiled_s": wall_unprofiled_s,
+            "device_busy_share": dev_us / 1e6 / wall_unprofiled_s,
+            "wall_profiled_s": wall_s,
+            "device_busy_share_of_profiled_wall": dev_us / 1e6 / wall_s,
+            "device_s": dev_us / 1e6, "banded_solve_s": solve_us / 1e6,
+            "banded_solve_share_of_device": solve_us / max(dev_us, 1e-9),
+            "device_kernel_launches": n}
+
+
+def phase_profile(ctx, results):
+    """One more stage-1 run under torch.profiler (``profiled``), against
+    phase 4's unprofiled repeats."""
+    from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
+
+    fte, batched, q0b = ctx[:3]
+    run = pbatch.make_kinematic_multistart(fte)
+    out = profiled(lambda: run(q0b, batched),
+                   float(np.mean(results["main"]["repeat_s"])))
     log(f"# profile: {out}")
     results["profile"] = out
+
+
+def load_jax_priors(dev):
+    """The JAX-trained priors of ``tests/data/jax_dd_inputs.npz`` as port
+    objects, and JAX's float32 stage-1 trajectories."""
+    from cheetah_pose_estimation_tpu_torch import convert
+    from cheetah_pose_estimation_tpu_torch.priors import armodel
+
+    z = np.load(os.path.join(HERE, "tests", "data", "jax_dd_inputs.npz"))
+    params = convert.gmm_params((z["gmm_weights"], z["gmm_means"],
+                                 z["gmm_covs"]), device=dev)
+    mm = armodel.MotionModel(
+        coef=z["ar_coef"], intercept=z["ar_intercept"],
+        error_variance=z["ar_error_variance"],
+        train_rmse=float(z["ar_train_rmse"]),
+        validation_rmse=float(z["ar_validation_rmse"]),
+        window_size=int(z["ar_window_size"]),
+        window_time=int(z["ar_window_time"]), lasso=bool(z["ar_lasso"]))
+    return params, mm, z["stage1_q"]
+
+
+def phase_dd(dev, ctx, results):
+    """Stage 1.5: priors, the main path with the port's priors, agreement
+    with the JAX float32 run, one profiled run. Returns the launches per
+    shape of the counted run."""
+    from cheetah_pose_estimation_tpu_torch import convert
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.pipeline.batched import (
+        run_data_driven)
+    from cheetah_pose_estimation_tpu_torch.priors import dataset, gmm
+
+    _, batched, _, trials, fpss, subject, q_stage1 = ctx
+    B = q_stage1.shape[0]
+    out = {}
+    # priors: tables, training on the card (set-up), against JAX's
+    t0 = time.perf_counter()
+    train = bench_lib.procedural_pose_table(bench_lib.TRAIN_SEEDS)
+    val = bench_lib.procedural_pose_table(bench_lib.VAL_SEEDS)
+    out["tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pri = bench_lib.train_priors(train, val, device=dev)
+    torch.cuda.synchronize()
+    out["prior_training_s"] = time.perf_counter() - t0
+    jparams, jmm, jq1 = load_jax_priors(dev)
+    X22 = train.data[:, 6:28]
+    out["gmm_score"] = {"port": gmm.score(pri.gmm_params, X22),
+                        "jax": gmm.score(jparams, X22)}
+    Xw, _ = dataset.windowed_dataset(train.data, train.index, 4)
+    out["ar_max_abs_diff"] = float(np.abs(
+        pri.motion_model.predict(Xw) - jmm.predict(Xw)).max())
+    out["ar_rmse"] = {"port": [pri.motion_model.train_rmse,
+                               pri.motion_model.validation_rmse],
+                      "jax": [jmm.train_rmse, jmm.validation_rmse]}
+    log(f"# dd: tables {out['tables_s']:.2f} s, prior training "
+        f"{out['prior_training_s']:.2f} s, GMM score {out['gmm_score']}, AR "
+        f"max |pred diff| {out['ar_max_abs_diff']:.3e}, AR rmse "
+        f"{out['ar_rmse']}")
+    d_gmm = abs(out["gmm_score"]["port"] - out["gmm_score"]["jax"])
+    if not (d_gmm <= TOL_GMM_NATS and out["ar_max_abs_diff"] <= TOL_AR):
+        raise AssertionError(f"priors disagree with JAX's: GMM {d_gmm:.3f} "
+                             f"nats, AR {out['ar_max_abs_diff']:.3e}")
+
+    # main path: the port's priors, from phase 4's stage-1 result
+    gp = convert.gmm_prior(pri.gmm_prior, B, device=dev)
+
+    def run():
+        q, ok, shifts = run_data_driven(q_stage1, batched, gp,
+                                        pri.motion_model, subject)
+        torch.cuda.synchronize()
+        return q, ok, shifts
+
+    # the warm-up run counts the kernel's launches and times each phase
+    # (synced); then 2 timed repeats (3 made the smoke too long)
+    phases = {}
+    cuda_banded.reset_launches()
+    t0 = time.perf_counter()
+    run_data_driven(q_stage1, batched, gp, pri.motion_model, subject,
+                    timings=phases)
+    out["first_call_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    out["phases_s"] = phases
+    log(f"# dd: phases of the warm-up run (synced) {phases}")
+    if not (by_shape.get((10, 64), 0) > 0 and by_shape.get((70, 64), 0) > 0):
+        raise AssertionError(f"the dd stage did not launch the kernel at "
+                             f"10x64 and 70x64: {by_shape}")
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        q, ok, shifts = run()
+        times.append(time.perf_counter() - t0)
+    if not (q.shape == q_stage1.shape and torch.isfinite(q).all()):
+        raise AssertionError("non-finite or misshapen dd trajectories")
+    rows = bench_lib.score_per_trial(q.double().cpu().numpy(), trials, fpss,
+                                     subject)
+    s_trial = float(np.mean(times)) / B
+    out.update({"repeat_s": times, "s_per_trial": s_trial,
+                "trials_per_min": 60.0 / s_trial,
+                "launches_by_shape": shape_keys(by_shape),
+                "prior_ok": ok.tolist(), "shifts": shifts.tolist(),
+                "per_trial": rows})
+    log(f"# dd: first call {out['first_call_s']:.3f} s, repeats {times} s, "
+        f"{s_trial:.4f} s/trial, {60.0 / s_trial:.1f} trials/min, kernel "
+        f"launches {out['launches_by_shape']}, prior_ok {ok.tolist()}, "
+        f"shifts {shifts.tolist()}")
+    for i, r in enumerate(rows):
+        log(f"# dd: trial {i} MPE {r[0]:.2f} mm MPJPE {r[1]:.2f} mm "
+            f"CoM-vel {r[2]:.4f} m/s")
+
+    # agreement: JAX's stage-1 output and JAX's priors through the port
+    with open(os.path.join(HERE, "tests", "data", "jax_stage15_f32.json"),
+              encoding="utf-8") as f:
+        jref = json.load(f)
+    qa, oka, sha = run_data_driven(
+        torch.as_tensor(jq1, dtype=torch.float32, device=dev), batched,
+        convert.gmm_prior(gmm.to_solver_prior(jparams), B, device=dev), jmm,
+        subject)
+    ra = bench_lib.score_per_trial(qa.double().cpu().numpy(), trials, fpss,
+                                   subject)
+    mp = np.array([r[1] for r in ra])
+    agree = {"mean_mpjpe_port": mp.mean(), "per_trial": ra,
+             "prior_ok_port": oka.tolist(), "shifts_port": sha.tolist()}
+    # held to the float64 run; the float32 run stops where its gradient
+    # noise lets it (tests/data/jax_stage15_reference.py) and is reported
+    for name, ref in (("jax_f64", jref["f64"]), ("jax_f32", jref)):
+        mj = np.array(ref["mpjpe_mm"])
+        for i in np.nonzero(np.abs(mp - mj) > 5.0)[0]:
+            log(f"# dd agree: trial {i} port {mp[i]:.2f} mm vs {name} "
+                f"{mj[i]:.2f} mm")
+        agree[name] = {"mean_mpjpe": mj.mean(),
+                       "rel": abs(mp.mean() - mj.mean()) / mj.mean(),
+                       "prior_ok": ref["prior_ok"], "shifts": ref["shifts"]}
+        log(f"# dd agree: mean MPJPE port {mp.mean():.3f} {name} "
+            f"{mj.mean():.3f} (rel {agree[name]['rel']:.4f}); prior_ok port "
+            f"{oka.tolist()} {name} {ref['prior_ok']}; shifts port "
+            f"{sha.tolist()} {name} {ref['shifts']}")
+    out["agree"] = agree
+    results["dd"] = out
+    if agree["jax_f64"]["rel"] > TOL_MPJPE:
+        raise AssertionError(f"dd mean MPJPE disagrees with JAX's float64 "
+                             f"run: {agree['jax_f64']['rel']:.4f} (limit "
+                             f"{TOL_MPJPE})")
+
+    prof = profiled(run, float(np.mean(times)))
+    log(f"# dd profile: {prof}")
+    out["profile"] = prof
+    return by_shape
 
 
 def phase_agree(ctx, rows_kernel, results):
     from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
 
-    fte, batched, q0b, trials, fpss, subject = ctx
+    fte, batched, q0b, trials, fpss, subject = ctx[:6]
     t0 = time.perf_counter()
     st = pbatch.make_kinematic_multistart(fte, linear_solver="scan")(
         q0b, batched)
@@ -452,21 +650,24 @@ def main():
         if "registers" in line or "smem" in line or "spill" in line:
             log(f"# build: {line.strip()}")
     results["build_s"] = build_s
-    # 3-5
+    # 3-7
     worst_rel, worst_abs, timed = phase_kernel(dev, results)
-    launches, rows, ctx = phase_main(dev, results)
+    stage1_shapes, rows, ctx = phase_main(dev, results)
     phase_agree(ctx, rows, results)
     phase_profile(ctx, results)
+    dd_shapes = phase_dd(dev, ctx, results)
 
     main_shape = timed[0]                     # (10, 64): the finish's shape
-    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "roofline_share")
+    keys = ("kernel_ms", "plain_ms", "cr_ms", "library_ms", "bound_ms",
+            "bound_by", "roofline_share")
     kernels = {"kernels": [{
         "name": "banded_solve",
         "route": "cuda",
         "source": "cheetah_pose_estimation_tpu_torch/csrc/banded_solve.cu",
         "replaces": "cheetah_pose_estimation_tpu/ops/pallas_banded.py:262,309",
-        "launches": launches,
+        "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values()),
+        "launches_by_path": {"stage1": shape_keys(stage1_shapes),
+                             "dd": shape_keys(dd_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

@@ -26,15 +26,17 @@ def _cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N", [(10, 64), (30, 64), (1, 256), (3, 5),
-                                 (2, 1), (4, 7)])
+@pytest.mark.parametrize("B,N", [(10, 64), (30, 64), (70, 64), (1, 256),
+                                 (3, 5), (2, 1), (4, 7)])
 def test_kernel_matches_plain(B, N):
     dev = _cuda()
     diag, lower, rhs = cb.random_systems(B, N, B * 1000 + N, dev)
     before = cb.launches
+    before_shape = cb.launches_by_shape.get((B, N), 0)
     x = cb.solve(diag, lower, rhs)
     torch.cuda.synchronize()
     assert cb.launches == before + 1
+    assert cb.launches_by_shape[B, N] == before_shape + 1
     ref = cb.solve_reference(diag.double(), lower.double(), rhs.double())
     assert float((x.double() - ref).abs().max() / ref.abs().max()) < 7e-4
 

@@ -1,6 +1,7 @@
 """The PyTorch port runs without JAX, pandas or the JAX package: in a fresh
 interpreter, import the port, build and solve a 2-trial 16-frame problem on
-the CPU, then check ``sys.modules``. No module of
+the CPU, train small priors and run the data-driven stage on it with tiny
+schedules, then check ``sys.modules``. No module of
 ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its own copies
 of the tables it needs."""
 import os
@@ -33,6 +34,23 @@ SCRIPT = textwrap.dedent("""
     full = fte.make_solver(stages=((3.0, 2), (1.0, 2)))
     st = pbatch.make_multistart_probe(probe, full)(q0b, batched)
     assert st.q.shape == (2, 16, 54) and torch.isfinite(st.cost).all()
+    from cheetah_pose_estimation_tpu_torch import convert
+    from cheetah_pose_estimation_tpu_torch.pipeline import batched as pb
+    from cheetah_pose_estimation_tpu_torch.pipeline import depth_anchor
+    from cheetah_pose_estimation_tpu_torch.pipeline import estimator
+    from cheetah_pose_estimation_tpu_torch.priors import armodel, dataset
+    from cheetah_pose_estimation_tpu_torch.priors import gmm
+    train = bench_lib.procedural_pose_table((100, 101), n_frames=60)
+    val = bench_lib.procedural_pose_table((200,), n_frames=60)
+    prior = gmm.to_solver_prior(gmm.fit(train.data[:, 6:28], 2, max_iter=5,
+                                        device="cpu"))
+    mm = armodel.train_motion_model(train, validation=val, device="cpu")
+    q, ok, shifts = pb.run_data_driven(
+        st.q, batched, convert.gmm_prior(prior, 2, device="cpu"), mm,
+        params.get_subject("acinoset"), stages=((10.0, 1), (1.0, 2)),
+        scan_stages=((1.0, 1),))
+    assert q.shape == (2, 16, 54) and torch.isfinite(q).all()
+    assert ok.shape == (2,) and shifts.shape == (2,)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                         "cheetah_pose_estimation_tpu"))
