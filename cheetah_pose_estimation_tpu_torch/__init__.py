@@ -10,8 +10,9 @@ copies of the numpy-only tables it needs (``models/params.py``,
 ``models/noise.py``). Entry points that take a ``device`` run on the current
 CUDA device unless given ``device="cpu"``.
 
-Ported so far: default-mode monocular kinematic reconstruction of a batch of
-trials (``bench.py`` stage 1), with the banded Cholesky solve of every
+Ported so far: monocular reconstruction of a batch of trials in the
+default mode (``bench.py`` stage 1), the data-driven mode (stage 1.5) and
+the physics-based mode (stage 2), with the banded Cholesky solve of every
 Levenberg-Marquardt step as a hand-written CUDA kernel
 (``ops/cuda_banded.py``, ``csrc/banded_solve.cu``).
 """

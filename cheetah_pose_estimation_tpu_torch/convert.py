@@ -1,9 +1,10 @@
 """Carry a JAX-package problem and its trained priors across into the port.
 
 The port's ``KinematicData`` / ``CameraSet`` / ``GMMPrior`` / ``ARAnchor``
-have the JAX package's fields in the same order, so a problem built by the
-JAX package converts leaf by leaf: each leaf is taken as ``np.asarray(leaf)``
-(nothing of JAX is imported here) and becomes a tensor on ``device``.
+/ ``KineticData`` have the JAX package's fields in the same order, so a
+problem built by the JAX package converts leaf by leaf: each leaf is taken
+as ``np.asarray(leaf)`` (nothing of JAX is imported here) and becomes a
+tensor on ``device``.
 Tests use this to make both packages solve byte-identical problems. The
 trained priors (``GMMParams``, the solver's ``GMMPrior``, ``MotionModel``)
 are this system's weights and carry across the same way.
@@ -17,10 +18,12 @@ import torch
 
 from .priors import armodel, gmm
 from .solver import kinematic as kin
+from .solver import kinetic as kn
 from .utils.device import DeviceLike, resolve_device
 
 _TYPES = {"KinematicData": kin.KinematicData, "CameraSet": kin.CameraSet,
-          "GMMPrior": kin.GMMPrior, "ARAnchor": kin.ARAnchor}
+          "GMMPrior": kin.GMMPrior, "ARAnchor": kin.ARAnchor,
+          "KineticData": kn.KineticData}
 
 
 def _convert(x, fn):
@@ -51,6 +54,18 @@ def kinematic_problem(data, q0, device: DeviceLike = None,
         return torch.as_tensor(a, dtype=dtype, device=dev)
 
     return _convert(data, leaf), leaf(q0)
+
+
+def kinetic_problem(data, q0, device: DeviceLike = None,
+                    dtype: torch.dtype = torch.float64,
+                    batched: bool = False
+                    ) -> Tuple[kn.KineticData, torch.Tensor]:
+    """JAX ``KineticData`` (any array leaves, its kinematic base included)
+    and q0 -> port tensors, as :func:`kinematic_problem` (``batched``: the
+    leaves already carry the trial axis, e.g. the output of the JAX
+    ``pad_and_stack_kinetic``)."""
+    return kinematic_problem(data, q0, device=device, dtype=dtype,
+                             batched=batched)
 
 
 def gmm_params(params, device: DeviceLike = None) -> gmm.GMMParams:

@@ -1,0 +1,2 @@
+"""Rigid-body dynamics of the cheetah skeleton (port of
+``cheetah_pose_estimation_tpu/dynamics``: the equations of motion only)."""

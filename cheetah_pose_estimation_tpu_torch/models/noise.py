@@ -5,8 +5,9 @@ The port's own copy of the tables of
 per-marker pixel standard deviations R for the base DLC predictions and
 the two pairwise pseudo-measurement rows (inflated x2 for the rigid-body
 assumption), and per-DOF process noise Q for the constant-acceleration
-motion model (zero entries = unpenalized DOFs). ``tests/test_torch_tables.py``
-holds every value equal to the original.
+motion model (zero entries = unpenalized DOFs), and the per-coordinate EOM
+slack floor of the physics stage. ``tests/test_torch_tables.py`` holds
+every value equal to the original.
 """
 from __future__ import annotations
 
@@ -49,6 +50,21 @@ _Q_STD = np.array([
 ], dtype=float)
 
 Q = _Q_STD**2
+
+# per-coordinate EOM model-mismatch floor (body-weight units), in q order:
+# the RMS of the eliminated EOM slack at dynamically consistent solutions;
+# the physics stage's epsilon-insensitive slack band is a multiple of it
+EOM_SLACK_FLOOR = np.array([
+    0.342, 0.422, 0.526, 0.046, 0.027, 0.056,
+    0.045, 0.033, 0.068, 0.046, 0.022, 0.043,
+    0.000, 0.022, 0.043, 0.000, 0.022, 0.043,
+    0.021, 0.029, 0.013, 0.023, 0.032, 0.011,
+    0.011, 0.024, 0.004, 0.023, 0.070, 0.013,
+    0.027, 0.092, 0.010, 0.014, 0.052, 0.007,
+    0.034, 0.133, 0.021, 0.025, 0.037, 0.020,
+    0.100, 0.083, 0.054, 0.040, 0.028, 0.027,
+    0.020, 0.088, 0.015, 0.018, 0.058, 0.013,
+], dtype=float)
 
 
 def measurement_weights(n_pairwise: int = 1,

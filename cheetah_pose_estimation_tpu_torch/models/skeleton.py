@@ -18,13 +18,15 @@ import numpy as np
 import torch
 
 from ..ops.rotations import euler_zyx, euler_zyx_and_derivative
+from ..utils.device import constant
 from .params import LINK_INDEX, LINK_NAMES, N_LINKS, NQ, SubjectParams
 
 __all__ = ["LINK_NAMES", "MARKERS", "N_MARKERS", "fk_markers",
            "fk_markers_linear", "fk_markers_and_jacobian", "joint_residuals",
            "joint_residuals_and_jacobian", "com_position",
-           "marker_coefficients", "A_REL", "REL_MASK", "NX",
-           "relative_pose"]
+           "marker_coefficients", "com_coefficients", "bottom_coefficients",
+           "points_and_jacobian_from_coeffs", "com_and_jacobian", "A_REL",
+           "REL_MASK", "NX", "relative_pose"]
 
 MARKERS = (
     "nose", "r_eye", "l_eye", "neck_base", "spine", "tail_base", "tail1",
@@ -112,10 +114,11 @@ def _chain(base_com, R, axis_w, params: SubjectParams, xp):
     for name, sgn in (("UFL", -1.0), ("UFR", 1.0)):
         off = np.array([-lF / 2, sgn * rF, 0.0])
         tops[_L[name]] = bodyF_com + _rotate(R[..., _L["bodyF"], :, :], off,
-                                             xp)
+                                             xp, (params.name, name))
     for name, sgn in (("UBL", -1.0), ("UBR", 1.0)):
         off = np.array([lB / 2, sgn * rB, 0.0])
-        tops[_L[name]] = base_com + _rotate(R[..., i_base, :, :], off, xp)
+        tops[_L[name]] = base_com + _rotate(R[..., i_base, :, :], off, xp,
+                                            (params.name, name))
     for thigh, calf, hock in _LEGS:
         tops[_L[calf]] = tops[_L[thigh]] + axis_w[..., _L[thigh], :]
         tops[_L[hock]] = tops[_L[calf]] + axis_w[..., _L[calf], :]
@@ -125,18 +128,18 @@ def _chain(base_com, R, axis_w, params: SubjectParams, xp):
     return top, bottom, com
 
 
-def _rotate(R, v: np.ndarray, xp):
-    """R (..., 3, 3) @ constant v (3,)."""
+def _rotate(R, v: np.ndarray, xp, key=None):
+    """R (..., 3, 3) @ constant v (3,) (``key`` names v's tensor)."""
     if xp is np:
         return R @ v
-    return R @ torch.as_tensor(v, dtype=R.dtype, device=R.device)
+    return R @ constant(("leg_offset", key), R, lambda: v)
 
 
 def link_frames(q: torch.Tensor, params: SubjectParams) -> LinkFrames:
     """Forward kinematics for all 17 links of q (..., 54)."""
     R = euler_zyx(_angles_from_q(q))
-    axis_len = torch.as_tensor(_AXIS * params.length[:, None], dtype=q.dtype,
-                               device=q.device)
+    axis_len = constant(("axis_len", params.name), q,
+                        lambda: _AXIS * params.length[:, None])
     axis_w = (R @ axis_len[..., None])[..., 0]          # (..., 17, 3)
     base_com = q[..., 0:3]
     top, bottom, com = _chain(base_com, R, axis_w, params, torch)
@@ -149,10 +152,11 @@ def link_frames(q: torch.Tensor, params: SubjectParams) -> LinkFrames:
 def marker_positions(frames: LinkFrames) -> torch.Tensor:
     """24 marker world positions (..., 24, 3) from link frames."""
     ends = torch.stack([frames.top, frames.bottom], dim=-3)   # (..., 2, 17, 3)
-    anchors = ends[..., _MARKER_END, _MARKER_LINK, :]
-    Rm = frames.R[..., _MARKER_LINK, :, :]
-    off = torch.as_tensor(_MARKER_OFFSET, dtype=anchors.dtype,
-                          device=anchors.device)
+    end = constant("marker_end", ends, lambda: _MARKER_END, torch.long)
+    link = constant("marker_link", ends, lambda: _MARKER_LINK, torch.long)
+    anchors = ends[..., end, link, :]
+    Rm = frames.R[..., link, :, :]
+    off = constant("marker_offset", anchors, lambda: _MARKER_OFFSET)
     return anchors + (Rm @ off[..., None])[..., 0]
 
 
@@ -190,8 +194,8 @@ def marker_coefficients(params: SubjectParams) -> np.ndarray:
 
 
 def _coef(params: SubjectParams, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(marker_coefficients(params), dtype=like.dtype,
-                           device=like.device)
+    return constant(("marker_coef", params.name), like,
+                    lambda: marker_coefficients(params))
 
 
 def fk_markers_linear(q: torch.Tensor, params: SubjectParams) -> torch.Tensor:
@@ -224,10 +228,65 @@ def fk_markers_and_jacobian(q: torch.Tensor, params: SubjectParams
     return pts, _scatter_angle_jacobian(J_ang, N_MARKERS)
 
 
+_LINK_COEF_CACHE = {}
+
+
+def _link_point_coefficients(params: SubjectParams, which: str
+                             ) -> np.ndarray:
+    """(17, 17, 3) c[k, l] with point_l(q) = q[0:3] + sum_k R_k(q) c[k, l]
+    for the link centres (``which="com"``) or bottom ends ("bottom"), probed
+    like :func:`marker_coefficients`."""
+    key = (params.name, which)
+    if key in _LINK_COEF_CACHE:
+        return _LINK_COEF_CACHE[key]
+    C = np.zeros((N_LINKS, N_LINKS, 3))
+    for k in range(N_LINKS):
+        for j in range(3):
+            R = np.zeros((N_LINKS, 3, 3))
+            R[k, 0, j] = 1.0
+            axis_w = np.einsum("lij,lj->li", R,
+                               _AXIS * params.length[:, None])
+            _, bottom, com = _chain(np.zeros(3), R, axis_w, params, np)
+            if which == "com":
+                com[_L["base"]] = 0.0      # the base centre is q[0:3]
+                C[k, :, j] = com[:, 0]
+            else:
+                C[k, :, j] = bottom[:, 0]
+    _LINK_COEF_CACHE[key] = C
+    return C
+
+
+def com_coefficients(params: SubjectParams) -> np.ndarray:
+    """(17, 17, 3) coefficients of the link centres (rows: rotations k)."""
+    return _link_point_coefficients(params, "com")
+
+
+def bottom_coefficients(params: SubjectParams) -> np.ndarray:
+    """(17, 17, 3) coefficients of the link bottom ends (the feet are the
+    hock bottoms)."""
+    return _link_point_coefficients(params, "bottom")
+
+
+def points_and_jacobian_from_coeffs(q: torch.Tensor, C: torch.Tensor):
+    """A point set linear in the rotations: positions (..., L, 3) and the
+    closed-form Jacobian (..., L, 3, 54) for coefficients C (17, L, 3)."""
+    R, dR = euler_zyx_and_derivative(_angles_from_q(q))
+    pts = torch.einsum("...kij,klj->...li", R, C) + q[..., None, 0:3]
+    J_ang = torch.einsum("...kija,klj->...lika", dR, C)
+    return pts, _scatter_angle_jacobian(J_ang, C.shape[1])
+
+
+def com_and_jacobian(q: torch.Tensor, params: SubjectParams):
+    """Link centres (..., 17, 3) and their Jacobian (..., 17, 3, 54)."""
+    C = constant(("com_coef", params.name), q,
+                 lambda: com_coefficients(params))
+    return points_and_jacobian_from_coeffs(q, C)
+
+
 def com_position(q: torch.Tensor, params: SubjectParams) -> torch.Tensor:
     """Mass-weighted whole-body centre of mass (..., 3)."""
     frames = link_frames(q, params)
-    m = torch.as_tensor(params.mass, dtype=q.dtype, device=q.device)
+    m = constant(("mass", params.name), q, lambda: params.mass)
     return torch.einsum("i,...ij->...j", m, frames.com) / params.total_mass
 
 
@@ -310,7 +369,7 @@ def joint_residuals_and_jacobian(q: torch.Tensor, jacobian: bool = True):
 
 
 def _ey(q: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([0.0, 1.0, 0.0], dtype=q.dtype, device=q.device)
+    return constant("ey", q, lambda: np.array([0.0, 1.0, 0.0]))
 
 
 # ---------------------------------------------------------------------------
@@ -357,5 +416,5 @@ NX = A_REL.shape[0]
 
 def relative_pose(q: torch.Tensor) -> torch.Tensor:
     """q (..., 54) -> reduced relative pose x (..., 28), x = A_REL q."""
-    A = torch.as_tensor(A_REL, dtype=q.dtype, device=q.device)
+    A = constant("A_REL", q, lambda: A_REL)
     return torch.einsum("ij,...j->...i", A, q)

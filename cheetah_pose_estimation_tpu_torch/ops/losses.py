@@ -1,10 +1,11 @@
-"""Robust loss and its generalized-Gauss-Newton weights.
+"""Robust losses and their generalized-Gauss-Newton weights.
 
 Port of ``cheetah_pose_estimation_tpu/ops/losses.py``: the reference's
-smoothed three-part redescending loss, and per-residual (gradient,
-curvature) weights for a cost sum rho(w * r). The JAX package derives
-psi = rho' with ``jax.grad`` (``ops/losses.py:75-81``); here psi is written
-out term by term, in the same arithmetic as that autodiff.
+smoothed three-part redescending loss, the Huber loss of the physics stage's
+measurement term, and per-residual (gradient, curvature) weights for a cost
+sum rho(w * r). The JAX package derives psi = rho' with ``jax.grad``
+(``ops/losses.py:75-81``); here psi is written out term by term, in the same
+arithmetic as that autodiff.
 
 That includes its float32 overflow: the logistic steps are
 ``1 / (1 + exp(-(x - start)))`` and their derivative, as autodiff forms it,
@@ -59,15 +60,32 @@ def redescending_psi(e: torch.Tensor, a=3.0, b=10.0, c=20.0) -> torch.Tensor:
     return torch.where(e >= 0, d, -d)
 
 
+def huber(r: torch.Tensor, delta) -> torch.Tensor:
+    """Quadratic core, linear tail: the influence never vanishes."""
+    a = torch.abs(r)
+    return torch.where(a <= delta, 0.5 * r * r, delta * (a - 0.5 * delta))
+
+
+def huber_psi(e: torch.Tensor, delta) -> torch.Tensor:
+    """psi(e) = d huber / d e: e in the core, delta sign(e) in the tail
+    (autodiff of ``0.5 * e * e`` gives e exactly)."""
+    return torch.where(torch.abs(e) <= delta, e, delta * torch.sign(e))
+
+
+PSI = {"redescending": redescending_psi, "huber": huber_psi}
+
+
 def gauss_newton_weights(r: torch.Tensor, w: torch.Tensor,
                          curvature_floor: float = 1e-3, loss_params=(),
-                         curvature_cap: float = 1.0):
+                         curvature_cap: float = 1.0,
+                         loss: str = "redescending"):
     """Per-residual (gradient, curvature) weights for cost sum rho(w * r),
-    rho = redescending with thresholds ``loss_params`` (each broadcastable
-    to r), in "irls" mode: curvature is the secant psi(e)/e clamped to
-    [floor, cap]. Returns (d cost / d r, curvature >= 0)."""
+    rho the named ``loss`` with parameters ``loss_params`` (each
+    broadcastable to r: redescending (a, b, c), huber (delta,)), in "irls"
+    mode: curvature is the secant psi(e)/e clamped to [floor, cap]. Returns
+    (d cost / d r, curvature >= 0)."""
     e = w * r
-    psi = redescending_psi(e, *loss_params)
+    psi = PSI[loss](e, *loss_params)
     secant = torch.abs(psi) / torch.clamp(torch.abs(e), min=1e-9)
     hval = torch.clamp(secant, curvature_floor, curvature_cap)
     return w * psi, w * w * hval

@@ -2,7 +2,8 @@
 
 Port of ``cheetah_pose_estimation_tpu/parallel/batch.py``: trials are padded
 to a common frame and camera count and stacked into one ``KinematicData``
-of tensors with a leading trial axis; the production monocular solver
+(or, with the physics arrays, ``KineticData``) of tensors with a leading
+trial axis; the production monocular solver
 probes every trial from three heading offsets and finishes only the winner.
 The TPU backend crossover (``backend_for``, ``CR_MAX_BATCH``) is not ported:
 the linear solver follows the tensors' device.
@@ -169,3 +170,41 @@ def make_kinematic_multistart(fte, margin: float = MULTISTART_MARGIN,
                             linear_solver=linear_solver)
     full = fte.make_solver(stages=FULL_STAGES, linear_solver=linear_solver)
     return make_multistart_probe(probe, full, margin=margin)
+
+
+def pad_and_stack_kinetic(kds, q_warms: Sequence[np.ndarray],
+                          n_frames: Optional[int] = None,
+                          n_cams: Optional[int] = None,
+                          dtype: torch.dtype = torch.float32,
+                          device: DeviceLike = None):
+    """Stack per-trial physics problems (``solver.kinetic.KineticData``
+    with numpy leaves) into one batch of tensors: the kinematic bases go
+    through :func:`pad_and_stack`, the physics arrays are zero-padded on the
+    frame axis (padded frames are masked by ``frame_valid`` in every
+    kinetic term). Returns (batched KineticData, q_warm (B, N, 54))."""
+    from ..dynamics.eom import N_TAU
+    from ..solver.kinetic import KineticData
+
+    dev = resolve_device(device)
+    N = n_frames or max(kd.base.meas.shape[0] for kd in kds)
+    base, q_warm = pad_and_stack([kd.base for kd in kds], q_warms,
+                                 n_frames=N, n_cams=n_cams, dtype=dtype,
+                                 device=dev)
+
+    def stack(field, pad_frames=True):
+        xs = [np.asarray(getattr(kd, field), float) for kd in kds]
+        xs = [_pad_to(x, N, 0) if pad_frames else x.reshape(())
+              for x in xs]
+        return torch.as_tensor(np.stack(xs), dtype=dtype, device=dev)
+
+    anchors = [_pad_to(np.broadcast_to(
+        np.asarray(kd.tau_anchor, float).reshape(-1, N_TAU),
+        (kd.base.meas.shape[0], N_TAU)), N, 0) for kd in kds]
+    return KineticData(
+        base=base, stance=stack("stance"), grf_fixed=stack("grf_fixed"),
+        grf_xy_fixed=stack("grf_xy_fixed"),
+        use_fixed_grf=stack("use_fixed_grf", False), q_warm=q_warm,
+        tau_anchor=torch.as_tensor(np.stack(anchors), dtype=dtype,
+                                   device=dev),
+        tau_anchor_weight=stack("tau_anchor_weight", False),
+        ground_z=stack("ground_z", False)), q_warm

@@ -1,12 +1,14 @@
-"""The batched data-driven stage.
+"""The batched data-driven and physics-based stages.
 
 Port of the data-driven branch of
 ``cheetah_pose_estimation_tpu/pipeline/batched.run_monocular_batched``
 (``batched.py:210-430``), in the form bench.py composes it as stage 1.5
 (``dd_host``, ``dd_depth``, ``dd_pipeline``, ``bench.py:305-397``); the two
-agree. One function, :func:`run_data_driven`, runs the whole stage on the
-device of the tensors it is given. The serial estimator, the ground-plane
-polish and the rolling AR refinement are not ported yet.
+agree. :func:`run_data_driven` runs that stage, :func:`run_physics` bench.py's
+stage 2 (``bench.py:440-487``), each on the device of the tensors it is
+given. The serial estimator, the ground-plane polish, the rolling AR
+refinement and the dataset drivers (``run_physics_batched`` reads trial
+directories) are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from ..models import skeleton as sk
 from ..models.params import SubjectParams
 from ..priors import armodel
 from ..solver import kinematic as kin
+from ..solver import kinetic as kn
+from . import bench_lib
 from . import depth_anchor as danchor
 from .estimator import DD_BASE_ANCHOR, prior_gate_accept
 
@@ -181,3 +185,46 @@ def run_data_driven(q_free: torch.Tensor, batched: kin.KinematicData,
             torch.as_tensor(rej_unmoved, device=dev)[:, None, None],
             q_free, q_dd)
     return q_dd, prior_ok, shifts
+
+
+def run_physics(q_warm: torch.Tensor, datas, fpss, subject: SubjectParams,
+                gmm_prior: Optional[kin.GMMPrior],
+                ground_heights=None,
+                stages: Tuple[Tuple[float, int], ...] = kn.STAGES,
+                timings: Optional[dict] = None):
+    """Physics-based reconstruction of a batch (bench.py's stage 2),
+    warm-started from kinematic solutions ``q_warm`` (B, N, 54), e.g. the
+    data-driven stage's.
+
+    ``datas`` are the per-trial monocular problems (numpy leaves, the
+    trial's real frames), ``fpss`` their frame rates, ``gmm_prior`` the
+    pose prior (numpy leaves, no trial axis) of
+    ``KineticConfig(use_gmm=True)``, ``ground_heights`` the per-trial ground
+    plane elevations. In order:
+
+    1. host prep (``bench_lib.build_physics_batch``): each trial's warm
+       start cut to its real frames, foot kinematics and centre of mass in
+       one padded float64 call, contact detection, stance pruning, the
+       stacked batch on q_warm's device and dtype;
+    2. the frozen EOM curvature blocks at the warm start;
+    3. the annealed LM solve of ``KineticFTE.make_solver`` over every lane
+       at once (bench.py runs it in waves of 5 lanes; the lanes are
+       independent, so one wave gives the same per-lane result).
+
+    With a ``timings`` dict, the wall seconds of the three phases
+    (host_prep, curvature, lm) are added to it, each ending in a device
+    sync. Returns (LMState, the batched KineticData)."""
+    phase = _Phases(timings, q_warm.device)
+    qs = [_np(q_warm[i, : np.asarray(d.meas).shape[0]])
+          for i, d in enumerate(datas)]
+    kbat, qw = bench_lib.build_physics_batch(
+        datas, qs, fpss, subject, gmm_prior=gmm_prior,
+        n_frames=q_warm.shape[1], dtype=q_warm.dtype,
+        ground_heights=ground_heights, device=q_warm.device)
+    phase("host_prep")
+    fte = kn.KineticFTE(kn.KineticConfig(use_gmm=True), subject)
+    blocks = fte.eom_curvature_blocks(qw, kbat)
+    phase("curvature")
+    st = fte.make_solver(stages=stages)(qw, kbat, eom_blocks=blocks)
+    phase("lm")
+    return st, kbat

@@ -1,11 +1,12 @@
 """Bench problem building and scoring.
 
-Port of the stage-1 parts of
-``cheetah_pose_estimation_tpu/pipeline/bench_lib.py``: batched monocular
-default-mode problems over procedural gallops (the fallback of
+Port of ``cheetah_pose_estimation_tpu/pipeline/bench_lib.py``: batched
+monocular default-mode problems over procedural gallops (the fallback of
 ``load_reference_trajectories`` when the reference test set is absent),
-and the per-trial quality metrics. Problem building is host work in
-numpy/float64; ``build_batch`` puts the stacked batch on ``device``.
+the physics stage's problems (``build_physics_batch``), and the per-trial
+quality metrics. Problem building is host work in numpy/float64;
+``build_batch`` and ``build_physics_batch`` put the stacked batch on
+``device``.
 
 The data-driven stage's priors are trained on the AcinoSet pose dataset in
 production; while it is absent from the repository they are trained on a
@@ -85,11 +86,12 @@ def build_monocular_problem(q_gt: np.ndarray, subject_name: str, fps: float,
 def build_batch(max_trials: Optional[int] = None,
                 n_frames: Optional[int] = None,
                 dtype: torch.dtype = torch.float32,
-                device: DeviceLike = None):
+                device: DeviceLike = None, return_problems: bool = False):
     """Batched monocular default problem over the test trials.
 
     Returns (batched_data, q0_batch, trials, subject) with the batch's
-    tensors on ``device``."""
+    tensors on ``device``; with ``return_problems`` also the per-trial
+    problems (numpy leaves) that the physics stage's host prep takes."""
     subject = P.get_subject("acinoset")
     datas, q0s, trials = [], [], []
     for i, (q_gt, _, fps) in enumerate(load_reference_trajectories(
@@ -100,7 +102,65 @@ def build_batch(max_trials: Optional[int] = None,
         trials.append(tr)
     batched, q0b = pbatch.pad_and_stack(datas, q0s, n_frames=n_frames,
                                         dtype=dtype, device=device)
+    if return_problems:
+        return batched, q0b, trials, subject, datas
     return batched, q0b, trials, subject
+
+
+def build_physics_batch(datas: Sequence[kin.KinematicData],
+                        qs_default: Sequence[np.ndarray],
+                        fpss: Sequence[float], subject,
+                        gmm_prior: Optional[kin.GMMPrior] = None,
+                        n_frames: Optional[int] = None,
+                        dtype: torch.dtype = torch.float32,
+                        ground_heights: Optional[Sequence[float]] = None,
+                        device: DeviceLike = None):
+    """Batched physics-based problems warm-started from solved kinematic
+    trajectories ``qs_default`` (one (n_i, 54) array per trial): foot
+    kinematics and centre of mass of every trial in one padded float64 call
+    on the host, contact detection and stance pruning per trial, then one
+    stacked ``KineticData`` on ``device`` (torque/GRF estimation mode).
+
+    ``gmm_prior`` (numpy leaves, no trial axis) replaces each problem's pose
+    prior; ``ground_heights`` are the per-trial ground plane elevations (0
+    by default). Returns (batched KineticData, q_warm (B, N, 54))."""
+    from ..solver import kinetic as kn
+    from . import contacts as contacts_mod
+
+    B = len(qs_default)
+    qs = [np.asarray(q, np.float64) for q in qs_default]
+    Nmax = max(q.shape[0] for q in qs)
+    qp = np.zeros((B, Nmax, qs[0].shape[1]))
+    dqp = np.zeros_like(qp)
+    for i, (q, fps) in enumerate(zip(qs, fpss)):
+        qp[i, : q.shape[0]] = q
+        dqp[i, 1: q.shape[0]] = (q[1:] - q[:-1]) * fps
+    h_all, v_all = contacts_mod.foot_kinematics(qp, dqp, subject)
+    com_all = sk.com_position(torch.as_tensor(qp), subject).numpy()
+    kds = []
+    for i, (d, q, fps) in enumerate(zip(datas, qs, fpss)):
+        N = q.shape[0]
+        h = 1.0 / fps
+        gph = 0.0 if ground_heights is None else float(ground_heights[i])
+        dq = np.zeros_like(q)
+        dq[1:] = (q[1:] - q[:-1]) / h
+        com_vel = (com_all[i, 1:N] - com_all[i, :N - 1]) * fps
+        speed = float(np.mean(np.linalg.norm(com_vel, axis=1)))
+        contacts, _ = contacts_mod.contact_detection(
+            q, dq, subject, 0, speed, fps, ground_plane_height=gph,
+            foot_kin=(h_all[i, :N], v_all[i, :N]))
+        stance = kn.stance_matrix(contacts, 0, N)
+        stance = kn.prune_stance(
+            stance, q, subject, h,
+            foot_speed=np.linalg.norm(v_all[i, :N, :, :2], axis=-1))
+        kds.append(kn.KineticData(
+            base=d if gmm_prior is None else d._replace(gmm=gmm_prior),
+            stance=stance, grf_fixed=np.zeros((N, 4)),
+            grf_xy_fixed=np.zeros((N, 4, 4)), use_fixed_grf=np.asarray(0.0),
+            q_warm=q, tau_anchor=np.zeros((1, kn.dyn.N_TAU)),
+            tau_anchor_weight=np.asarray(0.0), ground_z=np.asarray(gph)))
+    return pbatch.pad_and_stack_kinetic(kds, qs, n_frames=n_frames,
+                                        dtype=dtype, device=device)
 
 
 def score_per_trial(qs_batch: np.ndarray, trials, fpss, subject):

@@ -72,8 +72,8 @@ def scaled_system(g: torch.Tensor, H: banded.BlockBanded, lam: torch.Tensor,
     (S H S + lam I) y = -S g with S = diag(H)^-1/2, and dq = S y. Returns
     (the scaled H, -S g, the scale s (B, N, d)). lam is per lane (B,)."""
     d = torch.diagonal(H.diag, dim1=-2, dim2=-1)
-    d = torch.maximum(d, torch.as_tensor(diag_floor, dtype=d.dtype,
-                                         device=d.device))
+    d = torch.maximum(d, diag_floor.to(d.dtype)) if torch.is_tensor(
+        diag_floor) else torch.clamp(d, min=diag_floor)
     s = torch.rsqrt(d)                                       # (B, N, d)
     N, K = H.nblocks, H.bandwidth
     eye = torch.eye(H.block, dtype=H.diag.dtype, device=H.diag.device)
@@ -111,8 +111,14 @@ def _scaled_solve(g: torch.Tensor, H: banded.BlockBanded, lam: torch.Tensor,
     return y * s
 
 
-def _lm_step(s: LMState, cost_fn, normal_fn, config: LMConfig) -> LMState:
-    """One damped-GN attempt per lane with Nielsen's gain-ratio update."""
+def _lm_step(s: LMState, cost_fn, normal_fn, config: LMConfig,
+             guard_fn: Optional[Callable] = None,
+             guard_cap: Optional[torch.Tensor] = None) -> LMState:
+    """One damped-GN attempt per lane with Nielsen's gain-ratio update.
+
+    With ``guard_fn(q) -> (B,)`` and ``guard_cap`` (B,), a trial point whose
+    guard value exceeds its lane's cap is rejected even if the cost fell
+    (the physics stage guards its measurement and prior cost)."""
     g, H = normal_fn(s.q)
     dq = _scaled_solve(g, H, s.lam, config.diag_floor, config.linear_solver)
     if config.step_cap != float("inf"):
@@ -125,6 +131,8 @@ def _lm_step(s: LMState, cost_fn, normal_fn, config: LMConfig) -> LMState:
              + 0.5 * (dq * banded.matvec(H, dq)).sum((1, 2)))
     rho = (s.cost - cn) / torch.clamp(pred, min=1e-30)
     improved = cn < s.cost                       # False for NaN -> reject
+    if guard_fn is not None:
+        improved = improved & (guard_fn(qn) <= guard_cap)
     accept = improved & ~s.done
     q_new = torch.where(_lanes(accept, 3), qn, s.q)
     cost_new = torch.where(accept, cn, s.cost)
@@ -184,12 +192,15 @@ def lm_solve_scan(cost_fn: Callable, normal_fn: Callable, q0: torch.Tensor,
 def lm_solve_annealed(cost_fn: Callable, normal_fn: Callable,
                       q0: torch.Tensor,
                       stages: Tuple[Tuple[float, int], ...],
-                      config: LMConfig = LMConfig()) -> LMState:
+                      config: LMConfig = LMConfig(),
+                      guard_fn: Optional[Callable] = None,
+                      guard_cap: Optional[torch.Tensor] = None) -> LMState:
     """Graduated-non-convexity LM: ``cost_fn(q, scale)`` and
     ``normal_fn(q, scale)`` take a per-lane scale (B,). At a lane's stage
     boundary its cost is re-evaluated on the new surface, its convergence
     flag cleared and its damping reset; a stage that converged early
-    fast-forwards to its boundary."""
+    fast-forwards to its boundary. ``guard_fn``/``guard_cap``: see
+    :func:`_lm_step`."""
     n_stages = len(stages)
     dev = q0.device
     scales = torch.tensor([s for s, _ in stages], dtype=q0.dtype, device=dev)
@@ -219,7 +230,8 @@ def lm_solve_annealed(cost_fn: Callable, normal_fn: Callable,
                         lam=torch.where(changed, lam0, s.lam),
                         nu=torch.where(changed, two, s.nu))
         ns = _lm_step(s2, lambda q: cost_fn(q, scale),
-                      lambda q: normal_fn(q, scale), config)
+                      lambda q: normal_fn(q, scale), config,
+                      guard_fn=guard_fn, guard_cap=guard_cap)
         ff = ns.done & (idx < n_stages - 1)
         ns = ns._replace(it=torch.where(ff, bounds[idx], ns.it),
                          done=ns.done & ~ff,

@@ -8,8 +8,10 @@ joint-limit hinges, joint-manifold weld, Tikhonov floor) and for the
 data-driven mode's terms: the GMM pose prior, the AR motion anchor and the
 base-pose anchor. Every function takes a batch of trials: q (B, N, 54),
 ``KinematicData`` leaves with a leading trial axis, and a per-trial
-annealing scale (B,). The ground-plane, live-shutter and huber terms are not
-ported yet and raise ``NotImplementedError`` when switched on.
+annealing scale (B,). The measurement loss is the redescending one or, for
+the physics stage, the Huber loss (``loss="huber"``). The ground-plane and
+live-shutter terms are not ported yet and raise ``NotImplementedError`` when
+switched on.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from ..models import skeleton as sk
 from ..models.params import SubjectParams
 from ..ops import banded, camera, losses
+from ..utils.device import constant
 
 NQ = 54
 BANDWIDTH = 3
@@ -238,7 +241,10 @@ def _inv_pow4(s: torch.Tensor) -> torch.Tensor:
 
 def _per_lane(x, like: torch.Tensor) -> torch.Tensor:
     """Scalar or (B,) annealing scale -> (B,) tensor of q's dtype."""
-    s = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    if not torch.is_tensor(x):
+        return torch.full((like.shape[0],), float(x), dtype=like.dtype,
+                          device=like.device)
+    s = x.to(like.dtype)
     return s.expand(like.shape[0]) if s.ndim == 0 else s
 
 
@@ -252,7 +258,8 @@ class KinematicFTE:
             ("ground/penetration/noslip", config.ground_weight > 0.0
              or config.penetration_weight > 0.0
              or config.noslip_weight > 0.0),
-            ("loss=" + config.loss, config.loss != "redescending")) if on]
+            ("loss=" + config.loss,
+             config.loss not in ("redescending", "huber"))) if on]
         if unported:
             raise NotImplementedError(
                 f"KinematicConfig terms not ported yet: {unported}")
@@ -268,11 +275,19 @@ class KinematicFTE:
     def _const(self, a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
-    @staticmethod
-    def _loss_params(s: torch.Tensor):
-        """Annealed redescending thresholds (3s, 10s, 20s), shaped to
-        broadcast against residuals (B, N, C, L, 2, W)."""
+    def _table(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The instance's constant table ``name`` (``_G``, ``_lo``, ``_hi``,
+        ``_A22``, ``_A28``) as a tensor like ``like``, built once."""
+        return constant((name, self.config.kinetic_dataset), like,
+                        lambda: getattr(self, name))
+
+    def _loss_params(self, s: torch.Tensor):
+        """Annealed parameters of the measurement loss, shaped to broadcast
+        against residuals (B, N, C, L, 2, W): redescending thresholds
+        (3s, 10s, 20s), or the huber threshold (3s,)."""
         sv = s.view(-1, 1, 1, 1, 1, 1)
+        if self.config.loss == "huber":
+            return (3.0 * sv,)
         return 3.0 * sv, 10.0 * sv, 20.0 * sv
 
     # -- measurement ---------------------------------------------------------
@@ -321,7 +336,9 @@ class KinematicFTE:
         uv = proj(self._points(pts, data), *self._cams(data))
         res = uv[..., None] - data.meas                  # (B, N, C, L, 2, W)
         if cfg.robust:
-            meas = losses.redescending(w_all * res, *self._loss_params(s))
+            loss = losses.huber if cfg.loss == "huber" else \
+                losses.redescending
+            meas = loss(w_all * res, *self._loss_params(s))
         else:
             meas = (w_all * res) ** 2
         meas = meas.flatten(1).sum(1)
@@ -330,11 +347,11 @@ class KinematicFTE:
         pose = q.new_zeros(q.shape[0])
         motion = q.new_zeros(q.shape[0])
         if cfg.use_gmm:
-            x22 = torch.einsum("ij,btj->bti", self._const(self._A22, q), q)
+            x22 = torch.einsum("ij,btj->bti", self._table("_A22", q), q)
             pose = data.gmm_scale.to(q.dtype) * (
                 fv * self._gmm_neglog(x22, data.gmm)).sum(1)
         if cfg.use_ar:
-            x28 = torch.einsum("ij,btj->bti", self._const(self._A28, q), q)
+            x28 = torch.einsum("ij,btj->bti", self._table("_A28", q), q)
             r = x28 - data.ar.y_pred
             motion = (data.ar.valid[..., None] * data.ar.weight[:, None, :]
                       * r * r).sum((1, 2))
@@ -380,8 +397,8 @@ class KinematicFTE:
 
     @staticmethod
     def _log_eps(like: torch.Tensor) -> torch.Tensor:
-        return torch.log(torch.tensor(1e-12, dtype=like.dtype,
-                                      device=like.device))
+        return torch.log(constant("eps_1e-12", like,
+                                  lambda: np.asarray(1e-12)))
 
     def _gmm_neglog(self, x22: torch.Tensor, gmm: GMMPrior) -> torch.Tensor:
         """(B, N) -log(p(x) + 1e-12)."""
@@ -392,18 +409,20 @@ class KinematicFTE:
     def _base_residual(self, q: torch.Tensor, data: KinematicData):
         """Weights (6,) and residuals (B, N, 6) of the base-pose anchor."""
         cfg = self.config
-        wb = self._const(np.array([cfg.base_anchor_trans] * 3
-                                  + [cfg.base_anchor_rot] * 3), q)
+        wb = constant(("base_anchor", cfg.base_anchor_trans,
+                       cfg.base_anchor_rot), q,
+                      lambda: np.array([cfg.base_anchor_trans] * 3
+                                       + [cfg.base_anchor_rot] * 3))
         rb = q[..., :6] - data.base_ref.to(q.dtype).expand(q.shape[0],
                                                            q.shape[1], 6)
         return wb, rb
 
     # -- joint limits --------------------------------------------------------
     def _limit_values(self, q: torch.Tensor):
-        G = self._const(self._G, q)
+        G = self._table("_G", q)
         v = torch.einsum("cj,btj->btc", G, q)
-        up = torch.clamp(v - self._const(self._hi, q), min=0.0)
-        lo = torch.clamp(self._const(self._lo, q) - v, min=0.0)
+        up = torch.clamp(v - self._table("_hi", q), min=0.0)
+        lo = torch.clamp(self._table("_lo", q) - v, min=0.0)
         return G, up, lo
 
     def _limit_cost(self, q: torch.Tensor, frame_valid: torch.Tensor
@@ -432,7 +451,7 @@ class KinematicFTE:
         if cfg.robust:
             gw, hw = losses.gauss_newton_weights(
                 res, w, cfg.curvature_floor,
-                loss_params=self._loss_params(s))
+                loss_params=self._loss_params(s), loss=cfg.loss)
         else:
             gw, hw = 2.0 * w * w * res, 2.0 * w * w * torch.ones_like(res)
         J = torch.einsum("bncmdi,bnmik->bncmdk", Juv, Jm)        # (B,N,C,L,2,54)
@@ -449,7 +468,7 @@ class KinematicFTE:
         if cfg.use_gmm:
             # d/dx of -log(p + eps) = p/(p+eps) sum_k gamma_k P_k (x - mu_k),
             # curvature the EM/MM surrogate sum_k gamma_k P_k (PSD)
-            A22 = self._const(self._A22, q)
+            A22 = self._table("_A22", q)
             gmm = data.gmm
             x22 = torch.einsum("ij,btj->bti", A22, q)
             lt = self._gmm_logpdf_terms(x22, gmm)                 # (B, N, K)
@@ -470,7 +489,7 @@ class KinematicFTE:
             Hdiag = Hdiag + A22.T @ (Hx @ A22)
 
         if cfg.use_ar:
-            A28 = self._const(self._A28, q)
+            A28 = self._table("_A28", q)
             r = torch.einsum("ij,btj->bti", A28, q) - data.ar.y_pred
             wv = data.ar.weight[:, None, :] * data.ar.valid[..., None]
             g = g + 2.0 * torch.einsum("ij,bti->btj", A28, wv * r)

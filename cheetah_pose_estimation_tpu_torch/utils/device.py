@@ -11,7 +11,7 @@ off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Dict, Hashable, Optional, Union
 
 import torch
 
@@ -45,3 +45,22 @@ def require_cuda() -> torch.device:
                            "device=\"cpu\" to run on the CPU")
     full_precision()
     return torch.device("cuda", torch.cuda.current_device())
+
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def constant(key: Hashable, like: torch.Tensor, make: Callable,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The constant array ``make()`` as a tensor on ``like``'s device, of
+    ``dtype`` (default: ``like``'s), built once per (key, dtype, device).
+    On the card every ``torch.as_tensor`` of a host array, and every index
+    array, is a copy from pageable memory that waits for the stream to
+    drain, so the solvers' per-call constants come from here."""
+    dtype = like.dtype if dtype is None else dtype
+    k = (key, dtype, like.device)
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS[k] = torch.as_tensor(make(), dtype=dtype,
+                                            device=like.device)
+    return t

@@ -45,6 +45,25 @@ Phases (any failure exits nonzero):
    inputs (``tests/data/jax_stage15_f32.json``, ``f64``); the JAX float32
    run's mean MPJPE, gate decisions and shifts are printed beside it.
    Profile: one more dd run under torch.profiler.
+8. physics — stage 2 of the bench, the physics-based mode, from phase 7's
+   dd trajectories with the port's GMM prior: host prep
+   (``bench_lib.build_physics_batch``: foot kinematics, contact detection,
+   stance pruning; ground heights from each trial's ground truth), then the
+   kernel against its plain version in float64 on the kinetic normal
+   systems at the warm start (annealing scales 3 and 1, damped and
+   Jacobi-scaled as ``gn.scaled_system`` does at lam = 10 and 1e-2),
+   relative error <= 7e-4, and the peak device memory of the frozen EOM
+   curvature blocks. Main path: ``run_physics`` once (warm-up, the kernel's
+   launches at 10x64 > 0) and 2 timed repeats, host prep, curvature blocks
+   and LM loop timed apart; per-trial MPE, MPJPE, CoM-velocity, accepted
+   steps, RMS torque and peak GRFz, and bench's ``ok`` (finite, mean MPE
+   and CoM-velocity < 1.02x the warm start's). Agreement: ``run_physics``
+   from JAX's float32 stage-1 trajectories with the JAX-trained GMM
+   (``tests/data/jax_dd_inputs.npz``) against the JAX float64 stage-2 run
+   from the same inputs (``tests/data/jax_stage2_f32.json``, ``f64``): the
+   same pruned stance matrices, mean MPJPE within 2 %, mean CoM-velocity
+   within 5 %, the same ``ok``; the JAX float32 run beside it. Profile: one
+   more physics run under torch.profiler.
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -68,6 +87,7 @@ PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 TOL_MPJPE = 0.02      # mean MPJPE agreement, relative
 TOL_GMM_NATS = 0.5    # port vs JAX GMM, mean log-likelihood per sample
 TOL_AR = 1e-6         # port vs JAX AR predictions on the training windows
+TOL_COMVEL = 0.05     # stage-2 mean CoM-velocity agreement, relative
 SHAPES = ((10, 64), (30, 64), (70, 64), (1, 256))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -300,8 +320,9 @@ def phase_main(dev, results):
     from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
 
     t0 = time.perf_counter()
-    batched, q0b, trials, subject = bench_lib.build_batch(
-        max_trials=10, n_frames=64, dtype=torch.float32, device=dev)
+    batched, q0b, trials, subject, datas = bench_lib.build_batch(
+        max_trials=10, n_frames=64, dtype=torch.float32, device=dev,
+        return_problems=True)
     fpss = [f for _, _, f in bench_lib.load_reference_trajectories(10)]
     log(f"# main: problem build {time.perf_counter() - t0:.2f} s (host)")
     fte = kin.KinematicFTE(kin.KinematicConfig(), subject)
@@ -347,7 +368,8 @@ def phase_main(dev, results):
                        "split": split, "per_trial": rows,
                        "final_cost": st.cost.tolist(),
                        "iterations": st.it.tolist()}
-    return by_shape, rows, (fte, batched, q0b, trials, fpss, subject, st.q)
+    return by_shape, rows, (fte, batched, q0b, trials, fpss, subject, st.q,
+                            datas)
 
 
 def shape_keys(by_shape: dict) -> dict:
@@ -464,7 +486,7 @@ def phase_dd(dev, ctx, results):
         run_data_driven)
     from cheetah_pose_estimation_tpu_torch.priors import dataset, gmm
 
-    _, batched, _, trials, fpss, subject, q_stage1 = ctx
+    _, batched, _, trials, fpss, subject, q_stage1 = ctx[:7]
     B = q_stage1.shape[0]
     out = {}
     # priors: tables, training on the card (set-up), against JAX's
@@ -578,7 +600,224 @@ def phase_dd(dev, ctx, results):
     prof = profiled(run, float(np.mean(times)))
     log(f"# dd profile: {prof}")
     out["profile"] = prof
-    return by_shape
+    return by_shape, q, pri.gmm_prior, out
+
+
+def forces_summary(fte, q, kbat):
+    """Per trial: RMS joint torque and peak vertical GRF (body weights)
+    over the frames whose EOM residual is active."""
+    with torch.no_grad():
+        tau, gz, _ = fte.forces(q, kbat)
+    valid = fte._eom_valid(kbat)
+    rms = torch.sqrt((valid[..., None] * tau * tau).sum((1, 2))
+                     / (valid.sum(1) * tau.shape[-1]))
+    peak = (valid[..., None] * gz).amax((1, 2))
+    return rms.double().cpu().numpy(), peak.double().cpu().numpy()
+
+
+def bench_ok(q, rows, warm_rows) -> bool:
+    """bench.py's stage-2 flag: finite, mean MPE and mean CoM-velocity
+    RMSE below 1.02x the warm start's."""
+    mean = lambda rs, k: float(np.mean([r[k] for r in rs]))
+    return bool(torch.isfinite(q).all()) \
+        and mean(rows, 0) < 1.02 * mean(warm_rows, 0) \
+        and mean(rows, 2) < 1.02 * mean(warm_rows, 2)
+
+
+def physics_kernel_check(dev, fte, kbat, qw):
+    """The kernel on the kinetic normal systems at the warm start, against
+    the plain version in float64; the peak device memory of the frozen EOM
+    curvature assembly. Returns (rows, worst rel err, worst abs err)."""
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.solver import gn
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blocks = fte.eom_curvature_blocks(qw, kbat)
+    torch.cuda.synchronize()
+    curv_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    b = kbat.base
+    H_acc = kin.acc_banded(b.h, b.acc_weight, b.frame_valid)
+    floor = torch.clamp(torch.diagonal(H_acc.diag, dim1=-2, dim2=-1),
+                        min=1e-8)
+    B = qw.shape[0]
+    rows, worst_rel, worst_abs = [], 0.0, 0.0
+    for scale in (3.0, 1.0):
+        g, H = fte._normal(qw, kbat, scale, eom_blocks=blocks)
+        for lam in (10.0, 1e-2):
+            Hs, rhs, _ = gn.scaled_system(g, H, torch.full((B,), lam,
+                                                           device=dev),
+                                          floor)
+            d32, l32, r32 = (x.contiguous() for x in (Hs.diag, Hs.lower,
+                                                      rhs))
+            x = cuda_banded.solve(d32, l32, r32)
+            torch.cuda.synchronize()
+            ref = cuda_banded.solve_reference(d32.double(), l32.double(),
+                                              r32.double())
+            if not (torch.isfinite(x).all() and torch.isfinite(ref).all()):
+                raise AssertionError(f"non-finite physics solve at scale "
+                                     f"{scale}, lam {lam}")
+            abs_err = float((x.double() - ref).abs().max())
+            rel = abs_err / float(ref.abs().max())
+            rows.append({"scale": scale, "lam": lam, "rel_err": rel,
+                         "max_abs_err": abs_err})
+            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs,
+                                                            abs_err)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    log(f"# physics: kernel on the kinetic normal systems {rows}; EOM "
+        f"curvature blocks {curv_s:.3f} s, peak device memory "
+        f"{peak / 2**30:.3f} GiB over {base_mem / 2**30:.3f} GiB in use "
+        f"(card {card / 2**30:.1f} GiB)")
+    if worst_rel > TOL_REL:
+        raise AssertionError(f"kernel rel err {worst_rel:.3e} > {TOL_REL} on "
+                             "the kinetic normal systems")
+    return rows, worst_rel, worst_abs, {"curvature_s": curv_s,
+                                        "curvature_peak_bytes": peak,
+                                        "bytes_in_use_before": base_mem}
+
+
+def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
+    """Stage 2: host prep, the kernel on the physics systems, the main path
+    from phase 7's output, agreement with the JAX runs from JAX's inputs, one
+    profiled run. Returns the kernel's launches per shape of the counted
+    run."""
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.pipeline import contacts
+    from cheetah_pose_estimation_tpu_torch.pipeline.batched import (
+        run_physics)
+    from cheetah_pose_estimation_tpu_torch.priors import gmm
+    from cheetah_pose_estimation_tpu_torch.solver import kinetic as kn
+
+    _, _, _, trials, fpss, subject, _, datas = ctx
+    B = q_dd.shape[0]
+    out = {}
+    gphs = [contacts.estimate_ground_height(tr.q_gt, subject)
+            for tr in trials]
+    fte = kn.KineticFTE(kn.KineticConfig(use_gmm=True), subject)
+
+    # host prep alone, and the kernel on the physics systems
+    t0 = time.perf_counter()
+    kbat, qw = bench_lib.build_physics_batch(
+        datas, [q_dd[i, : d.meas.shape[0]].double().cpu().numpy()
+                for i, d in enumerate(datas)], fpss, subject,
+        gmm_prior=gmm_prior, n_frames=q_dd.shape[1], dtype=q_dd.dtype,
+        ground_heights=gphs, device=dev)
+    out["host_prep_s"] = time.perf_counter() - t0
+    out["stance_frames"] = kbat.stance.sum((1, 2)).tolist()
+    log(f"# physics: host prep {out['host_prep_s']:.3f} s, stance frames "
+        f"per trial {out['stance_frames']}")
+    out["kernel"], worst_rel, worst_abs, mem = physics_kernel_check(
+        dev, fte, kbat, qw)
+    out.update(mem)
+
+    def run(q_warm, gp, timings=None):
+        st, kb = run_physics(q_warm, datas, fpss, subject, gp,
+                             ground_heights=gphs, timings=timings)
+        torch.cuda.synchronize()
+        return st, kb
+
+    # the warm-up run counts the kernel's launches; then 2 timed repeats
+    cuda_banded.reset_launches()
+    phases = {}
+    t0 = time.perf_counter()
+    run(q_dd, gmm_prior, phases)
+    out["first_call_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    log(f"# physics: warm-up {out['first_call_s']:.3f} s, phases "
+        f"{phases}, kernel launches {shape_keys(by_shape)}")
+    if not by_shape.get((B, q_dd.shape[1]), 0) > 0:
+        raise AssertionError(f"the physics stage did not launch the kernel "
+                             f"at {B}x{q_dd.shape[1]}: {by_shape}")
+    times, phase_runs = [], []
+    for _ in range(2):
+        phases = {}
+        t0 = time.perf_counter()
+        st, kb = run(q_dd, gmm_prior, phases)
+        times.append(time.perf_counter() - t0)
+        phase_runs.append(phases)
+    if not (st.q.shape == q_dd.shape and torch.isfinite(st.q).all()):
+        raise AssertionError("non-finite or misshapen physics trajectories")
+    q_np = st.q.double().cpu().numpy()
+    rows = bench_lib.score_per_trial(q_np, trials, fpss, subject)
+    rms_tau, peak_gz = forces_summary(fte, st.q, kb)
+    warm = dd_out["per_trial"]
+    ok = bench_ok(st.q, rows, warm)
+    s_trial = float(np.mean(times)) / B
+    steps = int(st.it.max())
+    lm_s = float(np.mean([p["lm"] for p in phase_runs]))
+    out.update({"repeat_s": times, "phases_s": phase_runs,
+                "s_per_trial": s_trial, "trials_per_min": 60.0 / s_trial,
+                "lm_iterations": steps, "lm_ms_per_step": 1e3 * lm_s / steps,
+                "launches_by_shape": shape_keys(by_shape),
+                "n_accepted": st.n_accepted.tolist(), "it": st.it.tolist(),
+                "per_trial": rows, "rms_tau_bw": rms_tau.tolist(),
+                "peak_grf_z_bw": peak_gz.tolist(), "ok": ok})
+    log(f"# physics: repeats {times} s, {s_trial:.4f} s/trial, "
+        f"{60.0 / s_trial:.1f} trials/min, phases {phase_runs}, "
+        f"{steps} LM steps ({out['lm_ms_per_step']:.1f} ms per step), "
+        f"accepted steps per lane {st.n_accepted.tolist()}, ok {ok}")
+    mean = lambda rs, k: float(np.mean([r[k] for r in rs]))
+    log(f"# physics: mean MPE {mean(rows, 0):.2f} mm MPJPE "
+        f"{mean(rows, 1):.3f} mm CoM-vel {mean(rows, 2):.4f} m/s (warm "
+        f"{mean(warm, 0):.2f} / {mean(warm, 1):.3f} / {mean(warm, 2):.4f})")
+    for i, r in enumerate(rows):
+        log(f"# physics: trial {i} MPE {r[0]:.2f} mm MPJPE {r[1]:.2f} mm "
+            f"CoM-vel {r[2]:.4f} m/s RMS torque {rms_tau[i]:.4f} BW peak "
+            f"GRFz {peak_gz[i]:.3f} BW")
+
+    # agreement: JAX's stage-1 output and JAX's GMM through the port
+    with open(os.path.join(HERE, "tests", "data", "jax_stage2_f32.json"),
+              encoding="utf-8") as f:
+        jref = json.load(f)
+    jparams, _, jq1 = load_jax_priors(dev)
+    q1 = torch.as_tensor(jq1, dtype=torch.float32, device=dev)
+    sta, kba = run(q1, gmm.to_solver_prior(jparams))
+    ra = bench_lib.score_per_trial(sta.q.double().cpu().numpy(), trials,
+                                   fpss, subject)
+    warm_a = bench_lib.score_per_trial(jq1.astype(np.float64), trials, fpss,
+                                       subject)
+    ok_a = bench_ok(sta.q, ra, warm_a)
+    rms_a, peak_a = forces_summary(fte, sta.q, kba)
+    stance_a = kba.stance.cpu().numpy().astype(int)
+    agree = {"mean_mpjpe_port": mean(ra, 1), "mean_comvel_port": mean(ra, 2),
+             "mean_mpe_port": mean(ra, 0), "ok_port": ok_a,
+             "n_accepted_port": sta.n_accepted.tolist(), "per_trial": ra,
+             "rms_tau_bw_port": rms_a.tolist(),
+             "peak_grf_z_bw_port": peak_a.tolist()}
+    for name, ref in (("jax_f64", jref["f64"]), ("jax_f32", jref)):
+        same_stance = bool(np.array_equal(stance_a, np.asarray(ref["stance"])))
+        a = {"mean_mpjpe": ref["mean_mpjpe_mm"],
+             "mean_comvel": ref["mean_comvel_rmse_ms"],
+             "rel_mpjpe": abs(mean(ra, 1) - ref["mean_mpjpe_mm"])
+             / ref["mean_mpjpe_mm"],
+             "rel_comvel": abs(mean(ra, 2) - ref["mean_comvel_rmse_ms"])
+             / ref["mean_comvel_rmse_ms"],
+             "ok": ref["ok"], "same_stance": same_stance,
+             "n_accepted": ref["n_accepted"]}
+        agree[name] = a
+        log(f"# physics agree: port vs {name}: mean MPJPE {mean(ra, 1):.3f} "
+            f"vs {a['mean_mpjpe']:.3f} (rel {a['rel_mpjpe']:.4f}), CoM-vel "
+            f"{mean(ra, 2):.4f} vs {a['mean_comvel']:.4f} (rel "
+            f"{a['rel_comvel']:.4f}), ok {ok_a} vs {a['ok']}, same stance "
+            f"{same_stance}, accepted {sta.n_accepted.tolist()} vs "
+            f"{a['n_accepted']}")
+    out["agree"] = agree
+    results["physics"] = out
+    a = agree["jax_f64"]
+    if not (a["same_stance"] and a["rel_mpjpe"] <= TOL_MPJPE
+            and a["rel_comvel"] <= TOL_COMVEL and ok_a == a["ok"]):
+        raise AssertionError(f"physics stage disagrees with JAX's float64 "
+                             f"run: {a}, port ok {ok_a}")
+
+    prof = profiled(lambda: run(q_dd, gmm_prior), float(np.mean(times)))
+    log(f"# physics profile: {prof}")
+    out["profile"] = prof
+    return by_shape, worst_rel, worst_abs
 
 
 def phase_agree(ctx, rows_kernel, results):
@@ -650,12 +889,15 @@ def main():
         if "registers" in line or "smem" in line or "spill" in line:
             log(f"# build: {line.strip()}")
     results["build_s"] = build_s
-    # 3-7
+    # 3-8
     worst_rel, worst_abs, timed = phase_kernel(dev, results)
     stage1_shapes, rows, ctx = phase_main(dev, results)
     phase_agree(ctx, rows, results)
     phase_profile(ctx, results)
-    dd_shapes = phase_dd(dev, ctx, results)
+    dd_shapes, q_dd, gmm_dd, dd_out = phase_dd(dev, ctx, results)
+    physics_shapes, phys_rel, phys_abs = phase_physics(
+        dev, ctx, q_dd, gmm_dd, dd_out, results)
+    worst_rel, worst_abs = max(worst_rel, phys_rel), max(worst_abs, phys_abs)
 
     main_shape = timed[0]                     # (10, 64): the finish's shape
     keys = ("kernel_ms", "plain_ms", "cr_ms", "library_ms", "bound_ms",
@@ -665,9 +907,11 @@ def main():
         "route": "cuda",
         "source": "cheetah_pose_estimation_tpu_torch/csrc/banded_solve.cu",
         "replaces": "cheetah_pose_estimation_tpu/ops/pallas_banded.py:262,309",
-        "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values()),
+        "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values())
+        + sum(physics_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
-                             "dd": shape_keys(dd_shapes)},
+                             "dd": shape_keys(dd_shapes),
+                             "physics": shape_keys(physics_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

@@ -142,7 +142,7 @@ def test_prior_gradient_matches_autograd(prior_problem):
 
 def test_unported_terms_still_raise():
     for kw in (dict(ground_weight=1.0), dict(live_shutter=True),
-               dict(loss="huber")):
+               dict(loss="cauchy")):
         with pytest.raises(NotImplementedError):
             tkin.KinematicFTE(tkin.KinematicConfig(**kw), SUBJECT)
 

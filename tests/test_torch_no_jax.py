@@ -1,7 +1,7 @@
 """The PyTorch port runs without JAX, pandas or the JAX package: in a fresh
 interpreter, import the port, build and solve a 2-trial 16-frame problem on
-the CPU, train small priors and run the data-driven stage on it with tiny
-schedules, then check ``sys.modules``. No module of
+the CPU, train small priors and run the data-driven stage and then the
+physics stage on it with tiny schedules, then check ``sys.modules``. No module of
 ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its own copies
 of the tables it needs."""
 import os
@@ -51,6 +51,17 @@ SCRIPT = textwrap.dedent("""
         scan_stages=((1.0, 1),))
     assert q.shape == (2, 16, 54) and torch.isfinite(q).all()
     assert ok.shape == (2,) and shifts.shape == (2,)
+    from cheetah_pose_estimation_tpu_torch.pipeline import contacts
+    gphs = [contacts.estimate_ground_height(
+        syn.gallop_trajectory(16, seed=i), params.get_subject("acinoset"))
+        for i in range(2)]
+    timings = {}
+    st2, kbat = pb.run_physics(q, datas, [120.0, 120.0],
+                               params.get_subject("acinoset"), prior,
+                               ground_heights=gphs,
+                               stages=((3.0, 1), (1.0, 2)), timings=timings)
+    assert st2.q.shape == (2, 16, 54) and torch.isfinite(st2.q).all()
+    assert sorted(timings) == ["curvature", "host_prep", "lm"]
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                         "cheetah_pose_estimation_tpu"))

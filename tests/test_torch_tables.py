@@ -38,7 +38,8 @@ def test_link_tables_equal_jax():
 
 
 def test_noise_tables_equal_jax():
-    for name in ("R_BASE", "_R_PW1", "_R_PW2", "R_PW", "_Q_STD", "Q"):
+    for name in ("R_BASE", "_R_PW1", "_R_PW2", "R_PW", "_Q_STD", "Q",
+                 "EOM_SLACK_FLOOR"):
         assert np.array_equal(getattr(tnoise, name), getattr(jnoise, name)), \
             name
     for n in (1, 3):
@@ -74,3 +75,19 @@ def test_entry_points_need_the_card_or_cpu(monkeypatch):
         pbatch.pad_and_stack([d], [q0])
     batched, q0b = pbatch.pad_and_stack([d], [q0], device="cpu")
     assert q0b.device.type == "cpu" and batched.meas.device.type == "cpu"
+
+
+def test_physics_entry_points_need_the_card_or_cpu(monkeypatch):
+    """The physics stage's batch builders take the card by default too."""
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = bench_lib.syn.gallop_trajectory(12, seed=0)
+    d, _, _ = bench_lib.build_monocular_problem(q, "acinoset", 120.0)
+    subject = params.get_subject("acinoset")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        bench_lib.build_physics_batch([d], [q], [120.0], subject)
+    kbat, qw = bench_lib.build_physics_batch([d], [q], [120.0], subject,
+                                             device="cpu")
+    assert qw.device.type == "cpu" and kbat.stance.device.type == "cpu"
+    assert kbat.stance.shape == (1, 12, 4)
