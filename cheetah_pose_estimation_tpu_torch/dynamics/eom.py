@@ -36,7 +36,7 @@ from ..models.params import LINK_INDEX, N_LINKS, NQ, SubjectParams
 from ..ops.rotations import (euler_rate_to_body_omega,
                              euler_zyx_and_derivative,
                              euler_zyx_second_derivative)
-from ..utils.device import constant
+from ..utils.device import constant, tables_of
 
 GRAVITY = 9.81
 
@@ -91,8 +91,8 @@ class _Tables(NamedTuple):
 
 def tables(subject: SubjectParams, like: torch.Tensor) -> _Tables:
     """The subject's constant tables as tensors of ``like``'s dtype and
-    device, built once per (subject, dtype, device)."""
-    c = lambda name, make: constant((name, subject.name), like, make)
+    device, made once per (subject, dtype, device)."""
+    c = lambda name, make: tables_of(subject).get(name, like, make)
     return _Tables(
         c("mass", lambda: subject.mass),
         c("inertia", lambda: _inertia_body(subject)),

@@ -56,8 +56,10 @@ def _make(name: str, body_B, body_F, neck, tail0, tail1, f_thigh, f_calf,
             f_thigh, f_calf, f_hock, f_thigh, f_calf, f_hock,
             b_thigh, b_calf, b_thigh, b_calf, b_hock, b_hock]
     arr = np.array(rows, dtype=np.float64)
-    return SubjectParams(name, arr[:, 0].copy(), arr[:, 1].copy(),
-                         arr[:, 2].copy(), friction_coeff, torque_bounds)
+    cols = [arr[:, k].copy() for k in range(3)]
+    for c in cols:   # read-only: the tables made from a subject stay true
+        c.setflags(write=False)
+    return SubjectParams(name, *cols, friction_coeff, torque_bounds)
 
 
 # (mass, radius, length) triples

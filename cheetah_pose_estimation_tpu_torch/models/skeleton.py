@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.rotations import euler_zyx, euler_zyx_and_derivative
-from ..utils.device import constant
+from ..utils.device import constant, tables_of
 from .params import LINK_INDEX, LINK_NAMES, N_LINKS, NQ, SubjectParams
 
 __all__ = ["LINK_NAMES", "MARKERS", "N_MARKERS", "fk_markers",
@@ -114,11 +114,11 @@ def _chain(base_com, R, axis_w, params: SubjectParams, xp):
     for name, sgn in (("UFL", -1.0), ("UFR", 1.0)):
         off = np.array([-lF / 2, sgn * rF, 0.0])
         tops[_L[name]] = bodyF_com + _rotate(R[..., _L["bodyF"], :, :], off,
-                                             xp, (params.name, name))
+                                             xp, params, name)
     for name, sgn in (("UBL", -1.0), ("UBR", 1.0)):
         off = np.array([lB / 2, sgn * rB, 0.0])
         tops[_L[name]] = base_com + _rotate(R[..., i_base, :, :], off, xp,
-                                            (params.name, name))
+                                            params, name)
     for thigh, calf, hock in _LEGS:
         tops[_L[calf]] = tops[_L[thigh]] + axis_w[..., _L[thigh], :]
         tops[_L[hock]] = tops[_L[calf]] + axis_w[..., _L[calf], :]
@@ -128,18 +128,18 @@ def _chain(base_com, R, axis_w, params: SubjectParams, xp):
     return top, bottom, com
 
 
-def _rotate(R, v: np.ndarray, xp, key=None):
-    """R (..., 3, 3) @ constant v (3,) (``key`` names v's tensor)."""
+def _rotate(R, v: np.ndarray, xp, params: SubjectParams, link: str):
+    """R (..., 3, 3) @ the subject's constant offset v (3,) of ``link``."""
     if xp is np:
         return R @ v
-    return R @ constant(("leg_offset", key), R, lambda: v)
+    return R @ tables_of(params).get(("leg_offset", link), R, lambda: v)
 
 
 def link_frames(q: torch.Tensor, params: SubjectParams) -> LinkFrames:
     """Forward kinematics for all 17 links of q (..., 54)."""
     R = euler_zyx(_angles_from_q(q))
-    axis_len = constant(("axis_len", params.name), q,
-                        lambda: _AXIS * params.length[:, None])
+    axis_len = tables_of(params).get("axis_len", q,
+                                 lambda: _AXIS * params.length[:, None])
     axis_w = (R @ axis_len[..., None])[..., 0]          # (..., 17, 3)
     base_com = q[..., 0:3]
     top, bottom, com = _chain(base_com, R, axis_w, params, torch)
@@ -165,17 +165,18 @@ def fk_markers(q: torch.Tensor, params: SubjectParams) -> torch.Tensor:
     return marker_positions(link_frames(q, params))
 
 
-_COEF_CACHE = {}
-
-
 def marker_coefficients(params: SubjectParams) -> np.ndarray:
-    """(17, 24, 3) constant body-frame coefficient vectors c_{l,m}.
+    """(17, 24, 3) constant body-frame coefficient vectors c_{l,m}, made once
+    per subject.
 
     The chain FK with q[0:3] = 0 is linear in the rotations, so setting
     R_l = e_0 e_j^T (all other rotations zero) leaves
     ``marker_m[0] = c_{l,m}[j]``: 51 numpy probes of the chain."""
-    if params.name in _COEF_CACHE:
-        return _COEF_CACHE[params.name]
+    return tables_of(params).host("marker_coef",
+                              lambda: _probe_marker_coefficients(params))
+
+
+def _probe_marker_coefficients(params: SubjectParams) -> np.ndarray:
     ends_idx = (_MARKER_END, _MARKER_LINK)
     C = np.zeros((N_LINKS, N_MARKERS, 3))
     for l in range(N_LINKS):
@@ -189,13 +190,12 @@ def marker_coefficients(params: SubjectParams) -> np.ndarray:
             pts = anchors + np.einsum("mij,mj->mi", R[_MARKER_LINK],
                                       _MARKER_OFFSET)
             C[l, :, j] = pts[:, 0]
-    _COEF_CACHE[params.name] = C
     return C
 
 
 def _coef(params: SubjectParams, like: torch.Tensor) -> torch.Tensor:
-    return constant(("marker_coef", params.name), like,
-                    lambda: marker_coefficients(params))
+    return tables_of(params).get("marker_coef", like,
+                             lambda: marker_coefficients(params))
 
 
 def fk_markers_linear(q: torch.Tensor, params: SubjectParams) -> torch.Tensor:
@@ -228,17 +228,16 @@ def fk_markers_and_jacobian(q: torch.Tensor, params: SubjectParams
     return pts, _scatter_angle_jacobian(J_ang, N_MARKERS)
 
 
-_LINK_COEF_CACHE = {}
-
-
 def _link_point_coefficients(params: SubjectParams, which: str
                              ) -> np.ndarray:
     """(17, 17, 3) c[k, l] with point_l(q) = q[0:3] + sum_k R_k(q) c[k, l]
     for the link centres (``which="com"``) or bottom ends ("bottom"), probed
-    like :func:`marker_coefficients`."""
-    key = (params.name, which)
-    if key in _LINK_COEF_CACHE:
-        return _LINK_COEF_CACHE[key]
+    like :func:`marker_coefficients`, made once per subject."""
+    return tables_of(params).host(("link_coef", which),
+                              lambda: _probe_link_points(params, which))
+
+
+def _probe_link_points(params: SubjectParams, which: str) -> np.ndarray:
     C = np.zeros((N_LINKS, N_LINKS, 3))
     for k in range(N_LINKS):
         for j in range(3):
@@ -252,7 +251,6 @@ def _link_point_coefficients(params: SubjectParams, which: str
                 C[k, :, j] = com[:, 0]
             else:
                 C[k, :, j] = bottom[:, 0]
-    _LINK_COEF_CACHE[key] = C
     return C
 
 
@@ -278,15 +276,14 @@ def points_and_jacobian_from_coeffs(q: torch.Tensor, C: torch.Tensor):
 
 def com_and_jacobian(q: torch.Tensor, params: SubjectParams):
     """Link centres (..., 17, 3) and their Jacobian (..., 17, 3, 54)."""
-    C = constant(("com_coef", params.name), q,
-                 lambda: com_coefficients(params))
+    C = tables_of(params).get("com_coef", q, lambda: com_coefficients(params))
     return points_and_jacobian_from_coeffs(q, C)
 
 
 def com_position(q: torch.Tensor, params: SubjectParams) -> torch.Tensor:
     """Mass-weighted whole-body centre of mass (..., 3)."""
     frames = link_frames(q, params)
-    m = constant(("mass", params.name), q, lambda: params.mass)
+    m = tables_of(params).get("mass", q, lambda: params.mass)
     return torch.einsum("i,...ij->...j", m, frames.com) / params.total_mass
 
 

@@ -83,15 +83,10 @@ def build_monocular_problem(q_gt: np.ndarray, subject_name: str, fps: float,
     return data, q0, trial
 
 
-def build_batch(max_trials: Optional[int] = None,
-                n_frames: Optional[int] = None,
-                dtype: torch.dtype = torch.float32,
-                device: DeviceLike = None, return_problems: bool = False):
-    """Batched monocular default problem over the test trials.
-
-    Returns (batched_data, q0_batch, trials, subject) with the batch's
-    tensors on ``device``; with ``return_problems`` also the per-trial
-    problems (numpy leaves) that the physics stage's host prep takes."""
+def build_problems(max_trials: Optional[int] = None):
+    """The test trials' monocular default problems, one per trial: (datas
+    (numpy leaves), q0s, trials, subject). The physics stage's host prep
+    takes the datas."""
     subject = P.get_subject("acinoset")
     datas, q0s, trials = [], [], []
     for i, (q_gt, _, fps) in enumerate(load_reference_trajectories(
@@ -100,10 +95,20 @@ def build_batch(max_trials: Optional[int] = None,
         datas.append(d)
         q0s.append(q0)
         trials.append(tr)
+    return datas, q0s, trials, subject
+
+
+def build_batch(max_trials: Optional[int] = None,
+                n_frames: Optional[int] = None,
+                dtype: torch.dtype = torch.float32,
+                device: DeviceLike = None):
+    """Batched monocular default problem over the test trials.
+
+    Returns (batched_data, q0_batch, trials, subject) with the batch's
+    tensors on ``device``."""
+    datas, q0s, trials, subject = build_problems(max_trials)
     batched, q0b = pbatch.pad_and_stack(datas, q0s, n_frames=n_frames,
                                         dtype=dtype, device=device)
-    if return_problems:
-        return batched, q0b, trials, subject, datas
     return batched, q0b, trials, subject
 
 

@@ -10,8 +10,6 @@ on the host. The force-profile synthesis (``synth_grf_data``,
 """
 from __future__ import annotations
 
-import json
-import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -77,17 +75,15 @@ def estimate_ground_height(q: np.ndarray, subject: SubjectParams) -> float:
 
 def contact_detection(q: np.ndarray, dq: np.ndarray, subject: SubjectParams,
                       start_frame: int, speed: float, fps: float,
-                      data_dir: Optional[str] = None,
                       ground_plane_height: float = 0.0,
                       foot_kin: Optional[Tuple[np.ndarray, np.ndarray]]
-                      = None,
-                      per_foot_relative: bool = False) -> Tuple[Dict, Dict]:
-    """Heuristic stance detection. Returns (contacts, contacts_tmp) and,
-    when ``data_dir`` is given, writes grf/autogen-contact[-02].json.
-    ``foot_kin`` supplies precomputed (heights, velocities) so that a batch
-    caller evaluates the feet of every trial in one call;
-    ``per_foot_relative`` gates the height test against each foot's own
-    lowest point instead of the ground plane."""
+                      = None) -> Tuple[Dict, Dict]:
+    """Heuristic stance detection against the ground plane. Returns
+    (contacts, contacts_tmp). ``foot_kin`` supplies precomputed (heights,
+    velocities) so that a batch caller evaluates the feet of every trial in
+    one call. The JAX function's ``data_dir`` (writes the contact JSON files
+    for the force-profile synthesis) and ``per_foot_relative`` (the depth
+    correction's gate) serve callers that are not ported and are left out."""
     stance_time_fe = round(STANCE_TIME_MODEL.predict(speed) * fps)
     mid_way = stance_time_fe // 2
     is_even = (stance_time_fe % 2) == 0
@@ -98,9 +94,7 @@ def contact_detection(q: np.ndarray, dq: np.ndarray, subject: SubjectParams,
     contacts_tmp: Dict[str, Optional[List]] = {}
     for i, name in enumerate(FOOT_NAMES):
         fh = heights[:, i]
-        gate = (float(fh.min()) if per_foot_relative
-                else ground_plane_height) + HEIGHT_THRESHOLD
-        arg_h = np.where(fh < gate)[0]
+        arg_h = np.where(fh < ground_plane_height + HEIGHT_THRESHOLD)[0]
         groups = group_by_consecutive_values(arg_h)
         _, vel_crossings = positive_zero_crossings(vels[:, i, 2])
         contacts[name] = []
@@ -149,15 +143,4 @@ def contact_detection(q: np.ndarray, dq: np.ndarray, subject: SubjectParams,
 
     assign("HFL_foot", "HFR_foot")
     assign("HBL_foot", "HBR_foot")
-
-    if data_dir is not None:
-        grf_dir = os.path.join(data_dir, "grf")
-        os.makedirs(grf_dir, exist_ok=True)
-        for fname, c in (("autogen-contact.json", contacts),
-                         ("autogen-contact-02.json", contacts_tmp)):
-            with open(os.path.join(grf_dir, fname), "w",
-                      encoding="utf-8") as f:
-                json.dump({"start_frame": int(start_frame),
-                           "end_frame": int(start_frame + N),
-                           "contacts": c}, f)
     return contacts, contacts_tmp

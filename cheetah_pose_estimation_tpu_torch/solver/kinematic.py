@@ -24,7 +24,7 @@ import torch
 from ..models import skeleton as sk
 from ..models.params import SubjectParams
 from ..ops import banded, camera, losses
-from ..utils.device import constant
+from ..utils.device import Tables, constant
 
 NQ = 54
 BANDWIDTH = 3
@@ -271,15 +271,12 @@ class KinematicFTE:
         self._A28 = sk.A_REL      # (28, 54)
         self._base_anchor = (config.base_anchor_trans > 0.0
                              or config.base_anchor_rot > 0.0)
-
-    def _const(self, a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+        self.tables = Tables()
 
     def _table(self, name: str, like: torch.Tensor) -> torch.Tensor:
         """The instance's constant table ``name`` (``_G``, ``_lo``, ``_hi``,
-        ``_A22``, ``_A28``) as a tensor like ``like``, built once."""
-        return constant((name, self.config.kinetic_dataset), like,
-                        lambda: getattr(self, name))
+        ``_A22``, ``_A28``) as a tensor like ``like``, made once."""
+        return self.tables.get(name, like, lambda: getattr(self, name))
 
     def _loss_params(self, s: torch.Tensor):
         """Annealed parameters of the measurement loss, shaped to broadcast
@@ -305,8 +302,8 @@ class KinematicFTE:
         """(B, N, C, L, 1, W) weights incl. camera multipliers."""
         w = data.weight[:, :, :, :, None, :]
         if self.config.cam_multipliers:
-            m = self._const(np.asarray(self.config.cam_multipliers),
-                            w)[: w.shape[2]]
+            m = self.tables.get("cam_multipliers", w, lambda: np.asarray(
+                self.config.cam_multipliers))[: w.shape[2]]
             w = w * m[None, None, :, None, None, None]
         return w * data.frame_valid[:, :, None, None, None, None]
 
@@ -409,10 +406,9 @@ class KinematicFTE:
     def _base_residual(self, q: torch.Tensor, data: KinematicData):
         """Weights (6,) and residuals (B, N, 6) of the base-pose anchor."""
         cfg = self.config
-        wb = constant(("base_anchor", cfg.base_anchor_trans,
-                       cfg.base_anchor_rot), q,
-                      lambda: np.array([cfg.base_anchor_trans] * 3
-                                       + [cfg.base_anchor_rot] * 3))
+        wb = self.tables.get("base_anchor", q,
+                             lambda: np.array([cfg.base_anchor_trans] * 3
+                                              + [cfg.base_anchor_rot] * 3))
         rb = q[..., :6] - data.base_ref.to(q.dtype).expand(q.shape[0],
                                                            q.shape[1], 6)
         return wb, rb

@@ -49,7 +49,7 @@ from ..models import skeleton as sk
 from ..models.params import SubjectParams
 from ..ops import banded
 from ..ops.banded import chol_nan
-from ..utils.device import constant
+from ..utils.device import Tables
 from . import gn
 from . import kinematic as kin
 
@@ -153,6 +153,7 @@ class KineticFTE:
             # the kinetic stage carries its own weld term (_weld_cost)
             weld_weight=0.0), subject)
         self.force_scale = subject.total_mass * dyn.GRAVITY
+        self.tables = Tables()
 
     def _deadband(self, like: torch.Tensor) -> Optional[torch.Tensor]:
         """Per-coordinate (54,) or scalar epsilon-insensitive slack band,
@@ -169,9 +170,7 @@ class KineticFTE:
                 db = np.concatenate([np.full(3, cfg.base_deadband), db[3:]])
             return db
 
-        return constant(("eom_deadband", cfg.eom_deadband,
-                         cfg.eom_floor_relative, cfg.base_deadband), like,
-                        make)
+        return self.tables.get("eom_deadband", like, make)
 
     # ------------------------------------------------------------------
     # per-frame torque/GRF elimination

@@ -11,8 +11,10 @@ off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, Hashable, Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -47,20 +49,58 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+class Tables:
+    """Constant tables of one owner (a subject, a solver instance, or the
+    modules' own constants below), each made once and kept as long as the
+    owner. On the card every ``torch.as_tensor`` of a host array, and every
+    index array, is a copy from pageable memory that waits for the stream to
+    drain, so the solvers' per-call constants come from here. ``name`` tells
+    the owner's tables apart; what a table is made from belongs to its
+    owner, so a name never has to spell it out."""
+
+    def __init__(self):
+        self._host: Dict[Hashable, object] = {}
+        self._tensors: Dict[tuple, torch.Tensor] = {}
+
+    def host(self, name: Hashable, make: Callable):
+        """``make()`` (a host array), made once."""
+        if name not in self._host:
+            self._host[name] = make()
+        return self._host[name]
+
+    def get(self, name: Hashable, like: torch.Tensor, make: Callable,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The host array ``make()`` as a tensor on ``like``'s device, of
+        ``dtype`` (default: ``like``'s), made once per (dtype, device)."""
+        dtype = like.dtype if dtype is None else dtype
+        k = (name, dtype, like.device)
+        t = self._tensors.get(k)
+        if t is None:
+            # a copy, never a view of the (possibly read-only) host array
+            t = self._tensors[k] = torch.tensor(np.asarray(make()),
+                                                dtype=dtype,
+                                                device=like.device)
+        return t
 
 
-def constant(key: Hashable, like: torch.Tensor, make: Callable,
-             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The constant array ``make()`` as a tensor on ``like``'s device, of
-    ``dtype`` (default: ``like``'s), built once per (key, dtype, device).
-    On the card every ``torch.as_tensor`` of a host array, and every index
-    array, is a copy from pageable memory that waits for the stream to
-    drain, so the solvers' per-call constants come from here."""
-    dtype = like.dtype if dtype is None else dtype
-    k = (key, dtype, like.device)
-    t = _CONSTANTS.get(k)
+_MODULE_TABLES = Tables()
+_OWNED: Dict[int, Tables] = {}
+
+
+def tables_of(owner) -> Tables:
+    """The :class:`Tables` of ``owner`` (a subject), made on first use and
+    dropped with it. Any object that takes a weak reference will do, so the
+    owner's class needs no field for it."""
+    key = id(owner)
+    t = _OWNED.get(key)
     if t is None:
-        t = _CONSTANTS[k] = torch.as_tensor(make(), dtype=dtype,
-                                            device=like.device)
+        t = _OWNED[key] = Tables()
+        weakref.finalize(owner, _OWNED.pop, key, None)
     return t
+
+
+def constant(name: str, like: torch.Tensor, make: Callable,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A module-level constant (one that depends on nothing but its name) as
+    a tensor like ``like``; see :class:`Tables`."""
+    return _MODULE_TABLES.get(name, like, make, dtype)

@@ -320,9 +320,9 @@ def phase_main(dev, results):
     from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
 
     t0 = time.perf_counter()
-    batched, q0b, trials, subject, datas = bench_lib.build_batch(
-        max_trials=10, n_frames=64, dtype=torch.float32, device=dev,
-        return_problems=True)
+    datas, q0s, trials, subject = bench_lib.build_problems(max_trials=10)
+    batched, q0b = pbatch.pad_and_stack(datas, q0s, n_frames=64,
+                                        dtype=torch.float32, device=dev)
     fpss = [f for _, _, f in bench_lib.load_reference_trajectories(10)]
     log(f"# main: problem build {time.perf_counter() - t0:.2f} s (host)")
     fte = kin.KinematicFTE(kin.KinematicConfig(), subject)
@@ -627,7 +627,8 @@ def bench_ok(q, rows, warm_rows) -> bool:
 def physics_kernel_check(dev, fte, kbat, qw):
     """The kernel on the kinetic normal systems at the warm start, against
     the plain version in float64; the peak device memory of the frozen EOM
-    curvature assembly. Returns (rows, worst rel err, worst abs err)."""
+    curvature assembly; the time of one kinetic normal and one kinetic cost.
+    Returns (rows, worst rel err, worst abs err, memory and times)."""
     from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
     from cheetah_pose_estimation_tpu_torch.solver import gn
     from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
@@ -667,17 +668,32 @@ def physics_kernel_check(dev, fte, kbat, qw):
                          "max_abs_err": abs_err})
             worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs,
                                                             abs_err)
+    # one kinetic normal and one kinetic cost at the warm start, each synced:
+    # the two halves of an LM step's assembly
+    normal_s, cost_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fte._normal(qw, kbat, 1.0, eom_blocks=blocks)
+        torch.cuda.synchronize()
+        normal_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        fte._cost(qw, kbat, 1.0)
+        torch.cuda.synchronize()
+        cost_s.append(time.perf_counter() - t0)
     card = torch.cuda.get_device_properties(dev).total_memory
     log(f"# physics: kernel on the kinetic normal systems {rows}; EOM "
         f"curvature blocks {curv_s:.3f} s, peak device memory "
         f"{peak / 2**30:.3f} GiB over {base_mem / 2**30:.3f} GiB in use "
-        f"(card {card / 2**30:.1f} GiB)")
+        f"(card {card / 2**30:.1f} GiB); one kinetic normal {normal_s} s, "
+        f"one kinetic cost {cost_s} s")
     if worst_rel > TOL_REL:
         raise AssertionError(f"kernel rel err {worst_rel:.3e} > {TOL_REL} on "
                              "the kinetic normal systems")
     return rows, worst_rel, worst_abs, {"curvature_s": curv_s,
                                         "curvature_peak_bytes": peak,
-                                        "bytes_in_use_before": base_mem}
+                                        "bytes_in_use_before": base_mem,
+                                        "normal_s": normal_s,
+                                        "cost_s": cost_s}
 
 
 def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
