@@ -1,13 +1,15 @@
 """Synthetic trial generation (procedural gallops, camera rings, DLC-like
-detections).
+detections with correlated failures, AcinoSet-style trial directories).
 
-Port of the parts of ``cheetah_pose_estimation_tpu/data/synthetic.py`` that
-bench problems need, as numpy on top of the port's forward kinematics and
-camera model (float64 on the CPU). The random draws follow the JAX
-package's exactly, so the same seed gives the same problem.
+Port of ``cheetah_pose_estimation_tpu/data/synthetic.py`` (without the
+pairwise pseudo-measurement files of ``write_trial_dir(write_ppm=True)``),
+as numpy on top of the port's forward kinematics and camera model (float64
+on the CPU). The random draws follow the JAX package's exactly, in order and
+count, so the same seed gives the same trial.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -118,14 +120,88 @@ def fk_markers_np(q: np.ndarray, subject: SubjectParams) -> np.ndarray:
                          subject).numpy()
 
 
+# marker groups that occlude together (a whole limb, the head, the tail), as
+# indices into skeleton.MARKERS
+_OCCLUSION_GROUPS = [[0, 1, 2], [3, 4, 5], [6, 7],
+                     [8, 9, 10, 11], [12, 13, 14, 15],
+                     [16, 17, 18, 19], [20, 21, 22, 23]]
+# the two front / two back limb chains, for whole-limb confusion bursts
+_LIMB_SWAPS = [(np.array([8, 9, 10, 11]), np.array([12, 13, 14, 15])),
+               (np.array([16, 17, 18, 19]), np.array([20, 21, 22, 23]))]
+
+
+def corrupt_dlc(meas: np.ndarray, likelihood: np.ndarray,
+                rng: np.random.Generator,
+                occlusion_rate: float = 0.0, occlusion_len: float = 8.0,
+                confusion_rate: float = 0.0, confusion_len: float = 6.0,
+                freeze_prob: float = 0.35, dlc_thresh: float = 0.5,
+                lik_noise_px: float = 12.0
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """DLC-style correlated failure modes, on copies of ``meas``
+    (N, C, L, 2) and ``likelihood`` (N, C, L); rates are events per camera
+    per 100 frames:
+
+    * occlusion bursts: a marker group disappears (likelihood below the
+      threshold) for a window in one camera, or with probability
+      ``freeze_prob`` stays at its entry position with confident
+      likelihood;
+    * limb left/right confusion: a front or back limb pair swaps detections
+      for a window, at full confidence;
+    * likelihood-correlated noise: below-threshold detections get extra
+      noise of ``lik_noise_px * (thresh - lik)``.
+
+    Every decision comes from ``rng`` and the likelihoods, never from pixel
+    values, so renderings that differ by rounding take the same decisions."""
+    meas = meas.copy()
+    likelihood = likelihood.copy()
+    N, C, L = likelihood.shape
+
+    def windows(rate, mean_len):
+        n_ev = rng.poisson(rate * N / 100.0)
+        out = []
+        for _ in range(n_ev):
+            s = int(rng.integers(0, max(N - 2, 1)))
+            ln = max(2, int(rng.exponential(mean_len)))
+            out.append((s, min(s + ln, N)))
+        return out
+
+    for c in range(C):
+        for (s, e) in windows(occlusion_rate, occlusion_len):
+            grp = _OCCLUSION_GROUPS[int(rng.integers(len(_OCCLUSION_GROUPS)))]
+            if rng.uniform() < freeze_prob:
+                meas[s:e, c, grp] = meas[s, c, grp][None]
+                likelihood[s:e, c, grp] = rng.uniform(
+                    0.85, 1.0, size=(e - s, len(grp)))
+            else:
+                likelihood[s:e, c, grp] = rng.uniform(
+                    0.0, dlc_thresh, size=(e - s, len(grp)))
+        for (s, e) in windows(confusion_rate, confusion_len):
+            a, b = _LIMB_SWAPS[int(rng.integers(len(_LIMB_SWAPS)))]
+            tmp = meas[s:e, c, a].copy()
+            meas[s:e, c, a] = meas[s:e, c, b]
+            meas[s:e, c, b] = tmp
+            likelihood[s:e, c, a] = rng.uniform(0.8, 1.0,
+                                                size=(e - s, len(a)))
+            likelihood[s:e, c, b] = rng.uniform(0.8, 1.0,
+                                                size=(e - s, len(b)))
+
+    low = likelihood < dlc_thresh
+    extra = lik_noise_px * (dlc_thresh - likelihood[low])
+    meas[low] += rng.normal(size=(low.sum(), 2)) * extra[:, None]
+    return meas, likelihood
+
+
 def synthesize(q_gt: np.ndarray, subject: SubjectParams,
                scene: Optional[SyntheticScene] = None,
                noise_px: float = 1.5, outlier_frac: float = 0.02,
                outlier_px: float = 60.0, drop_frac: float = 0.05,
                dlc_thresh: float = 0.5, seed: int = 0,
-               subject_name: str = "acinoset") -> SyntheticTrial:
-    """Render noisy DLC-like detections of a q trajectory (no correlated
-    failure model: occlusion/confusion bursts are not ported)."""
+               subject_name: str = "acinoset",
+               occlusion_rate: float = 0.0, confusion_rate: float = 0.0
+               ) -> SyntheticTrial:
+    """Render noisy DLC-like detections of a q trajectory; with
+    ``occlusion_rate`` or ``confusion_rate`` > 0 also the correlated failure
+    model (:func:`corrupt_dlc`)."""
     rng = np.random.default_rng(seed)
     markers = fk_markers_np(q_gt, subject)
     N = q_gt.shape[0]
@@ -145,10 +221,39 @@ def synthesize(q_gt: np.ndarray, subject: SubjectParams,
                          0.0, 1.0)
     drop = rng.uniform(size=likelihood.shape) < drop_frac
     likelihood[drop] = rng.uniform(0.0, dlc_thresh, size=drop.sum())
+    if occlusion_rate > 0 or confusion_rate > 0:
+        meas, likelihood = corrupt_dlc(
+            meas, likelihood, rng, occlusion_rate=occlusion_rate,
+            confusion_rate=confusion_rate, dlc_thresh=dlc_thresh)
     return SyntheticTrial(q_gt=q_gt, markers_gt=markers,
                           meas=meas[..., None],
                           likelihood=likelihood[..., None],
                           scene=scene, subject_name=subject_name)
+
+
+def write_trial_dir(trial: SyntheticTrial, root_dir: str, data_path: str,
+                    monocular_cam: int = 0,
+                    ground_plane_height: float = 0.0) -> str:
+    """Materialize a synthetic trial as an AcinoSet-style directory tree:
+    dlc/cam*.csv, extrinsic_calib/N_cam_scene_sba.json, metadata.json."""
+    from . import io as dio
+
+    data_dir = os.path.join(root_dir, data_path)
+    os.makedirs(data_dir, exist_ok=True)
+    N, C = trial.meas.shape[:2]
+    for c in range(C):
+        dio.save_dlc_table(
+            os.path.join(data_dir, "dlc", f"cam{c + 1}.csv"),
+            trial.meas[:, c, :, :, 0], trial.likelihood[:, c, :, 0])
+    dio.save_scene(
+        os.path.join(data_dir, "extrinsic_calib",
+                     f"{C}_cam_scene_sba.json"),
+        trial.scene.K, trial.scene.D, trial.scene.R, trial.scene.t,
+        trial.scene.cam_res)
+    dio.save_metadata(data_dir, start_frame=0, end_frame=N,
+                      monocular_cam=monocular_cam,
+                      ground_plane_height=ground_plane_height)
+    return data_dir
 
 
 def gated_weights(trial: SyntheticTrial, dlc_thresh: float = 0.5,

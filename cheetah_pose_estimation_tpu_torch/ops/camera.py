@@ -149,6 +149,21 @@ def undistort_pinhole(uv: torch.Tensor, K, D, iters: int = 20
     return xy
 
 
+def triangulate_dlt(ab1: torch.Tensor, ab2: torch.Tensor, R1, t1, R2,
+                    t2) -> torch.Tensor:
+    """Two-view DLT triangulation of undistorted normalized coordinates
+    ab1, ab2 (..., 2) on P = [R | t]: the right singular vector of the
+    smallest singular value of the 4x4 system, dehomogenised -> (..., 3)."""
+    P1 = torch.cat([R1, t1.reshape(3, 1)], dim=1)
+    P2 = torch.cat([R2, t2.reshape(3, 1)], dim=1)
+    A = torch.stack([ab1[..., 0, None] * P1[2] - P1[0],
+                     ab1[..., 1, None] * P1[2] - P1[1],
+                     ab2[..., 0, None] * P2[2] - P2[0],
+                     ab2[..., 1, None] * P2[2] - P2[1]], dim=-2)
+    Xh = torch.linalg.svd(A).Vh[..., -1, :]
+    return Xh[..., :3] / Xh[..., 3:4]
+
+
 def backproject_to_distance(ab: torch.Tensor, dist, R: torch.Tensor,
                             t: torch.Tensor) -> torch.Tensor:
     """Normalized coords (..., 2) at camera-frame depth ``dist`` (scalar or

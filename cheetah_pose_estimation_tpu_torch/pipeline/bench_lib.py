@@ -119,7 +119,8 @@ def build_physics_batch(datas: Sequence[kin.KinematicData],
                         n_frames: Optional[int] = None,
                         dtype: torch.dtype = torch.float32,
                         ground_heights: Optional[Sequence[float]] = None,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None,
+                        stances: Optional[Sequence[np.ndarray]] = None):
     """Batched physics-based problems warm-started from solved kinematic
     trajectories ``qs_default`` (one (n_i, 54) array per trial): foot
     kinematics and centre of mass of every trial in one padded float64 call
@@ -128,7 +129,9 @@ def build_physics_batch(datas: Sequence[kin.KinematicData],
 
     ``gmm_prior`` (numpy leaves, no trial axis) replaces each problem's pose
     prior; ``ground_heights`` are the per-trial ground plane elevations (0
-    by default). Returns (batched KineticData, q_warm (B, N, 54))."""
+    by default); ``stances``, per-trial (n_i, 4) stance matrices, replace
+    the detection and pruning here. Returns (batched KineticData, q_warm
+    (B, N, 54))."""
     from ..solver import kinetic as kn
     from . import contacts as contacts_mod
 
@@ -151,13 +154,15 @@ def build_physics_batch(datas: Sequence[kin.KinematicData],
         dq[1:] = (q[1:] - q[:-1]) / h
         com_vel = (com_all[i, 1:N] - com_all[i, :N - 1]) * fps
         speed = float(np.mean(np.linalg.norm(com_vel, axis=1)))
-        contacts, _ = contacts_mod.contact_detection(
-            q, dq, subject, 0, speed, fps, ground_plane_height=gph,
-            foot_kin=(h_all[i, :N], v_all[i, :N]))
-        stance = kn.stance_matrix(contacts, 0, N)
-        stance = kn.prune_stance(
-            stance, q, subject, h,
-            foot_speed=np.linalg.norm(v_all[i, :N, :, :2], axis=-1))
+        if stances is not None:
+            stance = np.asarray(stances[i], np.float64)
+        else:
+            contacts, _ = contacts_mod.contact_detection(
+                q, dq, subject, 0, speed, fps, ground_plane_height=gph,
+                foot_kin=(h_all[i, :N], v_all[i, :N]))
+            stance = kn.prune_stance(
+                kn.stance_matrix(contacts, 0, N), q, subject, h,
+                foot_speed=np.linalg.norm(v_all[i, :N, :, :2], axis=-1))
         kds.append(kn.KineticData(
             base=d if gmm_prior is None else d._replace(gmm=gmm_prior),
             stance=stance, grf_fixed=np.zeros((N, 4)),

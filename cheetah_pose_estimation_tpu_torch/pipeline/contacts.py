@@ -3,13 +3,16 @@
 Port of the numpy part of ``cheetah_pose_estimation_tpu/pipeline/contacts.py``
 (``contacts.py:25-181``): a stance-time linear model from Hudson's cheetah
 data, a foot-height threshold plus vertical-velocity zero-crossing test,
-argmin-window stance placement, and leading/trailing limb assignment. Foot
-kinematics are a forward-mode derivative of the feet's positions in float64
-on the host. The force-profile synthesis (``synth_grf_data``,
-``get_grf_profile``) reads force-plate files and is not ported yet.
+argmin-window stance placement, leading/trailing limb assignment, and the
+``grf/autogen-contact.json`` files. Foot kinematics are a forward-mode
+derivative of the feet's positions in float64 on the host. The
+force-profile synthesis (``synth_grf_data``, ``get_grf_profile``) writes and
+reads force-plate ``.h5`` files and is not ported yet.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -75,15 +78,20 @@ def estimate_ground_height(q: np.ndarray, subject: SubjectParams) -> float:
 
 def contact_detection(q: np.ndarray, dq: np.ndarray, subject: SubjectParams,
                       start_frame: int, speed: float, fps: float,
+                      data_dir: Optional[str] = None,
                       ground_plane_height: float = 0.0,
                       foot_kin: Optional[Tuple[np.ndarray, np.ndarray]]
-                      = None) -> Tuple[Dict, Dict]:
+                      = None,
+                      per_foot_relative: bool = False) -> Tuple[Dict, Dict]:
     """Heuristic stance detection against the ground plane. Returns
-    (contacts, contacts_tmp). ``foot_kin`` supplies precomputed (heights,
-    velocities) so that a batch caller evaluates the feet of every trial in
-    one call. The JAX function's ``data_dir`` (writes the contact JSON files
-    for the force-profile synthesis) and ``per_foot_relative`` (the depth
-    correction's gate) serve callers that are not ported and are left out."""
+    (contacts, contacts_tmp) and, with ``data_dir``, writes them as
+    ``grf/autogen-contact.json`` and ``grf/autogen-contact-02.json`` there
+    (the physics-based mode reads the first back). ``foot_kin`` supplies
+    precomputed (heights, velocities) so that a batch caller evaluates the
+    feet of every trial in one call. ``per_foot_relative`` gates the height
+    test against each foot's own lowest height instead of the plane, so a
+    global depth error of a monocular solve (which moves every foot off the
+    plane) does not hide its stances: the depth correction needs that."""
     stance_time_fe = round(STANCE_TIME_MODEL.predict(speed) * fps)
     mid_way = stance_time_fe // 2
     is_even = (stance_time_fe % 2) == 0
@@ -94,7 +102,9 @@ def contact_detection(q: np.ndarray, dq: np.ndarray, subject: SubjectParams,
     contacts_tmp: Dict[str, Optional[List]] = {}
     for i, name in enumerate(FOOT_NAMES):
         fh = heights[:, i]
-        arg_h = np.where(fh < ground_plane_height + HEIGHT_THRESHOLD)[0]
+        gate = (float(fh.min()) if per_foot_relative
+                else ground_plane_height) + HEIGHT_THRESHOLD
+        arg_h = np.where(fh < gate)[0]
         groups = group_by_consecutive_values(arg_h)
         _, vel_crossings = positive_zero_crossings(vels[:, i, 2])
         contacts[name] = []
@@ -143,4 +153,15 @@ def contact_detection(q: np.ndarray, dq: np.ndarray, subject: SubjectParams,
 
     assign("HFL_foot", "HFR_foot")
     assign("HBL_foot", "HBR_foot")
+
+    if data_dir is not None:
+        grf_dir = os.path.join(data_dir, "grf")
+        os.makedirs(grf_dir, exist_ok=True)
+        for fname, c in (("autogen-contact.json", contacts),
+                         ("autogen-contact-02.json", contacts_tmp)):
+            with open(os.path.join(grf_dir, fname), "w",
+                      encoding="utf-8") as f:
+                json.dump({"start_frame": int(start_frame),
+                           "end_frame": int(start_frame + N),
+                           "contacts": c}, f)
     return contacts, contacts_tmp

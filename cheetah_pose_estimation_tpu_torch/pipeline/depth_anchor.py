@@ -1,17 +1,27 @@
-"""Monocular depth line-scan and its body-scale constraint.
+"""Monocular depth correction: the ground-plane ray shift, the body-scale
+channel and the depth line-scan.
 
-Port of the parts of ``cheetah_pose_estimation_tpu/pipeline/depth_anchor.py``
-that the data-driven stage runs: the camera rays, the body-scale depth
-channel and the line-scan. The reprojection cost is nearly flat along the
-viewing ray, so the scan re-solves the trajectory at candidate depth
-offsets and keeps a clear winner. The ray and scale helpers are host numpy
-in float64; the scan runs on the device of the tensors it is given. The
-ground-plane correction (``ray_depth_correction`` and its stance
-detection) is not ported yet.
+Port of ``cheetah_pose_estimation_tpu/pipeline/depth_anchor.py``. The
+reprojection cost is nearly flat along the viewing ray, so a monocular
+solve keeps the depth error of its initialisation. Two corrections:
+
+* the default mode's ground-plane correction (:func:`ray_depth_correction`):
+  detect stance windows on the solved trajectory, take each window's
+  lowest paw height above the calibrated plane, turn those gaps into depth
+  shifts along the camera ray (a stance foot hovering ``gap`` above the
+  plane betrays ``gap / -ray_z`` metres of depth error) and shift the base
+  by their robust minimum; the caller then polishes with the anchored
+  kinematic terms ``POLISH_CFG``;
+* the data-driven mode's line-scan (:func:`make_depth_linescan`): re-solve
+  the trajectory at candidate depth offsets and keep a clear winner,
+  constrained by the body-scale channel.
+
+The ray, stance and scale helpers are host numpy in float64; the scan runs
+on the device of the tensors it is given.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +29,136 @@ import torch
 from ..models import skeleton as sk
 from ..models.params import SubjectParams
 from ..ops import camera as cam_ops
+
+_PAW_IDX = np.array([sk.MARKERS.index(m) for m in
+                     ("l_front_paw", "r_front_paw",
+                      "l_back_paw", "r_back_paw")])
+
+# anchored-polish weights (solver.kinematic.KinematicConfig): the stance-z
+# pull is softer than the measurement term so a bad stance window cannot
+# drag a good reconstruction; the hinge only guards against penetration;
+# no-slip pins global translation during stance
+POLISH_CFG = dict(ground_weight=2e3, penetration_weight=1e4,
+                  noslip_weight=3e3)
+POLISH_STAGES = ((1.0, 30),)
+
+
+def detect_stance(q: np.ndarray, subject: SubjectParams, fps: float,
+                  ground_z: float = 0.0) -> np.ndarray:
+    """(N, 4) stance indicator from a solved trajectory: contact detection
+    gated per foot against its own lowest height (so a global depth error
+    does not blind it), then stance pruning; zeros when detection fails."""
+    from ..solver import kinetic as kn
+    from . import contacts as cmod
+
+    q = np.asarray(q, np.float64)
+    N = q.shape[0]
+    dq = np.zeros_like(q)
+    dq[1:] = (q[1:] - q[:-1]) * fps
+    com = sk.com_position(torch.as_tensor(q), subject).numpy()
+    com_v = np.diff(com, axis=0) * fps
+    speed = (float(np.mean(np.linalg.norm(com_v, axis=1)))
+             if N > 1 else 0.0)
+    try:
+        contacts, _ = cmod.contact_detection(
+            q, dq, subject, 0, speed, fps, ground_plane_height=ground_z,
+            per_foot_relative=True)
+    except (ValueError, IndexError):
+        return np.zeros((N, 4))
+    stance = kn.stance_matrix(contacts, 0, N)
+    return kn.prune_stance(stance, q, subject, 1.0 / fps)
+
+
+def paw_heights(q: np.ndarray, subject: SubjectParams) -> np.ndarray:
+    """(N, 4) paw-marker z along a trajectory (float64)."""
+    return sk.fk_markers(torch.as_tensor(np.asarray(q, np.float64)),
+                         subject).numpy()[:, _PAW_IDX, 2]
+
+
+def touchdown_samples(q: np.ndarray, subject: SubjectParams,
+                      stance: np.ndarray, ground_z: float
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per stance window of each foot: (frame of its lowest paw height,
+    that height above the plane, the window's length as weight). A stance
+    foot hovers early and late in its window but at its lowest it is flat
+    on the ground, so each window gives one nearly unbiased plane sample."""
+    paws = paw_heights(q, subject)
+    w = np.asarray(stance, np.float64)
+    ts, gaps, ws = [], [], []
+    for f in range(4):
+        on = w[:, f] > 0
+        if not on.any():
+            continue
+        idx = np.flatnonzero(on)
+        splits = np.flatnonzero(np.diff(idx) > 1)
+        for run in np.split(idx, splits + 1):
+            rel = paws[run, f] - ground_z
+            k = int(np.argmin(rel))
+            ts.append(float(run[k]))
+            gaps.append(float(rel[k]))
+            ws.append(float(len(run)))
+    return np.asarray(ts), np.asarray(gaps), np.asarray(ws)
+
+
+def fit_shift(ts: np.ndarray, gaps: np.ndarray, ws: np.ndarray,
+              ray_z: np.ndarray, min_ray_z: float = 0.02,
+              max_shift_m: float = 1.5,
+              deep_pen_m: float = 0.05,
+              min_shift_m: float = 0.35) -> np.ndarray:
+    """Constant per-trial shift along the ray (metres, + away from the
+    camera) implied by the touchdown gaps, s_i = gap_i / (-ray_z_i), as an
+    (N,) array.
+
+    Hovering feet bias the positive samples up, so the lowest positive
+    sample is taken ("at least one stance foot touches the ground"; a
+    lowest sample more than 0.5 m below the second lowest is an artifact
+    and the second lowest is used). Negative samples (feet below the plane)
+    are pose noise, amplified by the ray lever, and are dropped unless every
+    gap is deeper than ``deep_pen_m``; then the most negative sample (with
+    the same guard) is taken. Samples whose ray is too vertical
+    (``|ray_z| <= min_ray_z``) carry no lever. Zero without two samples, or
+    when the shift is below the channel's noise floor ``min_shift_m``;
+    clipped to ``max_shift_m``."""
+    N = ray_z.shape[0]
+    lever = -np.asarray(ray_z, np.float64)
+    ti = np.clip(np.asarray(ts, int), 0, N - 1)
+    ok = (np.asarray(ws) > 0) & (np.abs(lever[ti]) > min_ray_z)
+    if ok.sum() < 2:
+        return np.zeros(N)
+    g_ok = gaps[ok]
+    s_all = g_ok / lever[ti[ok]]
+    pos = s_all[s_all >= 0.0]
+    neg = s_all[s_all < 0.0]
+    if pos.size:
+        s = np.sort(pos)
+        s_hat = s[1] if (s.size > 1 and s[0] < s[1] - 0.5) else s[0]
+    elif neg.size and np.all(g_ok <= -deep_pen_m):
+        s = np.sort(neg)
+        s_hat = s[1] if (s.size > 1 and s[0] < s[1] - 0.5) else s[0]
+    else:
+        return np.zeros(N)
+    if abs(s_hat) < min_shift_m:
+        return np.zeros(N)
+    return np.full(N, np.clip(s_hat, -max_shift_m, max_shift_m))
+
+
+def ray_depth_correction(q: np.ndarray, subject: SubjectParams, fps: float,
+                         ground_z: float, R_cam: np.ndarray,
+                         t_cam: np.ndarray,
+                         stance: Optional[np.ndarray] = None
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Analytic monocular depth correction of a solved trajectory: returns
+    (q corrected, stance (N, 4), shift (N,) metres). ``stance`` reuses an
+    existing detection. A zero shift returns q unchanged."""
+    q = np.asarray(q, np.float64)
+    if stance is None:
+        stance = detect_stance(q, subject, fps, ground_z)
+    ts, gaps, ws = touchdown_samples(q, subject, stance, ground_z)
+    ray = camera_ray(q, R_cam, t_cam)
+    shift = fit_shift(ts, gaps, ws, ray[:, 2])
+    q_out = q.copy()
+    q_out[:, :3] = q[:, :3] + shift[:, None] * ray
+    return q_out, stance, shift
 
 
 def camera_ray(q: np.ndarray, R_cam: np.ndarray,

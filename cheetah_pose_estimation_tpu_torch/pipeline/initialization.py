@@ -1,11 +1,11 @@
-"""Trajectory initialisation from 2D detections — the monocular branch.
+"""Trajectory initialisation from 2D detections.
 
 Port of ``cheetah_pose_estimation_tpu/pipeline/initialization.py`` (numpy
 and scipy on the host; the camera model runs in float64 torch on the CPU):
-back-project the spine marker along its camera ray at a depth estimated from
-the apparent body size, smooth with cubic splines, take the heading from the
-planar velocity, and set every link's yaw to it. The multi-view branch is
-not ported yet.
+place the spine marker (multi-view: the mean of pairwise two-view DLT
+triangulations; monocular: back-projected along its camera ray at a depth
+estimated from the apparent body size), smooth with cubic splines, take the
+heading from the planar velocity, and set every link's yaw to it.
 """
 from __future__ import annotations
 
@@ -31,6 +31,39 @@ def _t(a) -> torch.Tensor:
 def _undistort(uv, K, D, fisheye: bool) -> np.ndarray:
     fn = cam_ops.undistort_fisheye if fisheye else cam_ops.undistort_pinhole
     return fn(_t(uv), _t(K), _t(D)).numpy()
+
+
+def triangulate_spine_multiview(meas: np.ndarray, weight: np.ndarray,
+                                K, D, R, t, fisheye: bool = True
+                                ) -> np.ndarray:
+    """Mean of the two-view triangulations of the spine marker over the
+    camera pairs (i, i+1 mod C) that both see it.
+
+    ``meas`` (N, C, L, 2[, W]) pixel detections (the first of W is used),
+    ``weight`` (N, C, L[, W]), 0 for gated-out detections. Returns (N, 3)
+    spine positions, NaN where no pair sees it."""
+    if meas.ndim == 5:
+        meas = meas[..., 0]
+        weight = weight[..., 0]
+    N, C = meas.shape[:2]
+    ab = np.stack([_undistort(meas[:, c, SPINE], K[c], D[c], fisheye)
+                   for c in range(C)], axis=1)           # (N, C, 2)
+    ok = weight[:, :, SPINE] > 0                          # (N, C)
+    acc = np.zeros((N, 3))
+    cnt = np.zeros(N)
+    for i in range(C):
+        j = (i + 1) % C
+        pair_ok = ok[:, i] & ok[:, j]
+        if not pair_ok.any():
+            continue
+        acc[pair_ok] += cam_ops.triangulate_dlt(
+            _t(ab[pair_ok, i]), _t(ab[pair_ok, j]), _t(R[i]), _t(t[i]),
+            _t(R[j]), _t(t[j])).numpy()
+        cnt[pair_ok] += 1
+    out = np.full((N, 3), np.nan)
+    nz = cnt > 0
+    out[nz] = acc[nz] / cnt[nz, None]
+    return out
 
 
 def estimate_monocular_depth(meas: np.ndarray, weight: np.ndarray,
@@ -67,7 +100,7 @@ def spine_from_single_view(meas: np.ndarray, weight: np.ndarray,
         depth = estimate_monocular_depth(meas, weight, cam_idx, K, D,
                                          fisheye, body_axis_m)
     X = cam_ops.backproject_to_distance(_t(ab), _t(depth), _t(R[cam_idx]),
-                                        _t(t[cam_idx])).numpy()
+                                        _t(t[cam_idx]).reshape(3)).numpy()
     X[~(weight[:, cam_idx, SPINE] > 0)] = np.nan
     return X
 
@@ -108,11 +141,14 @@ def initialize_trajectory(meas: np.ndarray, weight: np.ndarray, K, D, R, t,
                           subject: SubjectParams, fisheye: bool = True,
                           cam_idx: Optional[int] = None,
                           kinetic_dataset: bool = False) -> np.ndarray:
-    """Monocular init path: returns q0 (N, 54)."""
+    """Full init path (multi-view with ``cam_idx=None``, else monocular
+    from that camera): returns q0 (N, 54)."""
     if cam_idx is None:
-        raise NotImplementedError("multi-view initialisation is not ported")
-    body_axis = float(subject.length[0] + subject.length[1])
-    spine = spine_from_single_view(meas, weight, cam_idx, K, D, R, t,
-                                   fisheye, body_axis_m=body_axis)
+        spine = triangulate_spine_multiview(meas, weight, K, D, R, t,
+                                            fisheye)
+    else:
+        body_axis = float(subject.length[0] + subject.length[1])
+        spine = spine_from_single_view(meas, weight, cam_idx, K, D, R, t,
+                                       fisheye, body_axis_m=body_axis)
     sm, psi = smooth_and_head(spine, linear=kinetic_dataset)
     return initial_q(sm, psi, subject)

@@ -1,0 +1,229 @@
+"""The dataset CLI: its batched monocular path.
+
+Port of ``cheetah_pose_estimation_tpu/pipeline/run_dataset.py`` for
+``--materialize_synthetic`` and ``--run_monocular --batched --clean``::
+
+    python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
+        --materialize_synthetic --root_dir R
+    CHEETAH_DATA_DRIVEN_DATASET=P \
+    python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
+        --run_monocular --batched --clean --root_dir R --out_dir_prefix O
+
+The first renders the 10-trial synthetic test set (AcinoSet directory
+layout, 6 fisheye cameras, correlated DLC failures) into R; the second
+solves its four modes (multi-view ground truth, default, data-driven,
+physics-based) on the card (``--device cpu`` for the CPU), writes each
+trial's artifacts under O and the per-mode metrics against the multi-view
+solve to ``O/dataset_results.csv``, in the layout pandas writes for the JAX
+package. The serial per-trial path (``--run_monocular`` without
+``--batched``) is not ported yet and raises; the study, kinetic-set and
+analysis flags are not defined, and the post-process plots are not made.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..data import io as dio
+from ..data import synthetic as syn
+from ..models import params as params_mod
+from . import contacts as contacts_mod
+from . import metrics as metrics_mod
+
+# the reference's 10-trial monocular AcinoSet test set
+TEST_SET: Tuple[Tuple[str, str, str], ...] = (
+    ("jules", "2017_12_09/bottom", "flick2"),
+    ("jules", "2019_03_09", "flick1"),
+    ("phantom", "2019_03_03", "run"),
+    ("phantom", "2017_09_02/top", "run1_2"),
+    ("jules", "2017_08_29/top", "run1_2"),
+    ("phantom", "2017_08_29/top", "run1_1"),
+    ("jules", "2017_08_29/top", "run1_1"),
+    ("jules", "2017_09_02/top", "run1"),
+    ("phantom", "2019_03_07", "run"),
+    ("jules", "2017_09_02/bottom", "run2"),
+)
+
+CAM_OVERRIDES = [0, 0, 0, 3, 3, 3, 5, 0, 3, 0]
+
+def _reference_gt_trajectory(n_frames: int, seed: int) -> np.ndarray:
+    """Ground-truth q of a synthetic trial: the procedural gallop of
+    ``n_frames`` at 120 fps (the reference's shipped solutions, which the
+    JAX package reads first where they exist, are not in the
+    repository)."""
+    return syn.gallop_trajectory(n_frames, fps=120.0, seed=seed)
+
+
+def materialize_synthetic_testset(root_dir: str, n_cams: int = 6,
+                                  seed: int = 0,
+                                  noise_px: float = 1.5,
+                                  occlusion_rate: float = 2.0,
+                                  confusion_rate: float = 1.2) -> List[str]:
+    """Write an AcinoSet-style directory tree for every test trial,
+    rendered from its ground-truth trajectory through a ring of fisheye
+    cameras with the correlated DLC failure model
+    (``synthetic.corrupt_dlc``), plus ``synthetic_gt.pickle`` (q and
+    markers) for scoring against the truth. Host work in float64."""
+    made = []
+    for i, (cheetah, date, trial_name) in enumerate(TEST_SET):
+        data_path = os.path.join(date, cheetah, trial_name)
+        q_gt = _reference_gt_trajectory(40 + 2 * i, i)
+        subject = params_mod.get_subject(cheetah)
+        fps = 120.0 if "2019" in date else 90.0
+        markers = syn.fk_markers_np(q_gt, subject)
+        scene = syn.ring_cameras(markers.mean(axis=(0, 1)), n_cams=n_cams,
+                                 fps=fps, seed=seed + i)
+        tr = syn.synthesize(q_gt, subject, scene, noise_px=noise_px,
+                            outlier_frac=0.02, seed=seed + i,
+                            subject_name=cheetah,
+                            occlusion_rate=occlusion_rate,
+                            confusion_rate=confusion_rate)
+        syn.write_trial_dir(tr, root_dir, data_path, monocular_cam=2,
+                            ground_plane_height=contacts_mod.
+                            estimate_ground_height(q_gt, subject))
+        with open(os.path.join(root_dir, data_path, "synthetic_gt.pickle"),
+                  "wb") as f:
+            pickle.dump({"q": q_gt, "positions": tr.markers_gt}, f)
+        made.append(data_path)
+    return made
+
+
+MODE_DIRS = (("default", "fte_kinematic_orig_{cam}"),
+             ("data-driven", "fte_kinematic_{cam}"),
+             ("physics-based", "fte_kinetic_{cam}"))
+METRICS = ("mpe", "mpjpe", "CoM vel rmse", "smoothness error", "time")
+
+
+def trial_scores(gt: Dict, d: Dict) -> Dict[str, float]:
+    """Unrounded scores of the solution ``d`` against the multi-view one
+    ``gt`` (fte.pickle dicts): MPE and MPJPE in mm, CoM-velocity RMSE in
+    m/s, smoothness error in mm, over their common frames."""
+    n = min(len(d["positions"]), len(gt["positions"]))
+    X, Y = gt["positions"][:n], d["positions"][:n]
+    mpjpe, _, _ = metrics_mod.traj_error(X, Y, centered=True)
+    mpe, _, smooth = metrics_mod.traj_error(X, Y)
+    return {"mpe": float(mpe.mean()), "mpjpe": float(mpjpe.mean()),
+            "CoM vel rmse": metrics_mod.rmse(
+                np.asarray(gt["com_vel"])[:n - 1],
+                np.asarray(d["com_vel"])[:n - 1]),
+            "smoothness error": smooth}
+
+
+def dataset_post_process(root_dir: str, dir_prefix: str,
+                         test_set: Tuple = TEST_SET,
+                         cam_overrides: Optional[List[int]] = None
+                         ) -> Dict[str, Dict[str, Dict[str, float]]]:
+    """Per trial and mode, MPE, MPJPE, CoM-velocity RMSE, smoothness error
+    (against the multi-view solve) and solve time, rounded as the JAX
+    package rounds them, written to ``dataset_results.csv``: one column per
+    (trial, mode) under a two-row header, one row per metric, as pandas
+    writes ``concat({trial: DataFrame(modes)}, axis=1)``. Returns
+    {trial: {mode: {metric: value}}}."""
+    results: Dict[str, Dict[str, Dict[str, float]]] = {}
+    for idx, (cheetah, date, trial_name) in enumerate(test_set):
+        data_path = os.path.join(date, cheetah, trial_name)
+        base = os.path.join(dir_prefix, data_path)
+        if not os.path.exists(os.path.join(base, "fte_kinematic",
+                                           "fte.pickle")):
+            continue
+        if cam_overrides is not None:
+            cam_idx = cam_overrides[idx]
+        else:
+            cam_idx = dio.load_metadata(os.path.join(
+                root_dir, data_path))["monocular_cam"]
+        gt = dio.load_fte_pickle(os.path.join(base, "fte_kinematic",
+                                              "fte.pickle"))
+        entry: Dict[str, Dict[str, float]] = {}
+        for mode, sub in MODE_DIRS:
+            p = os.path.join(base, sub.format(cam=cam_idx), "fte.pickle")
+            if not os.path.exists(p):
+                continue
+            d = dio.load_fte_pickle(p)
+            sc = trial_scores(gt, d)
+            entry[mode] = {
+                "mpe": round(sc["mpe"], 1), "mpjpe": round(sc["mpjpe"], 1),
+                "CoM vel rmse": round(sc["CoM vel rmse"], 2),
+                "smoothness error": round(sc["smoothness error"], 1),
+                "time": round(float(d["processing_time_s"] or 0.0), 1)}
+        if entry:
+            results[data_path] = entry
+    if not results:
+        return results
+    cols = [(t, m) for t, e in results.items() for m in e]
+    os.makedirs(dir_prefix, exist_ok=True)
+    with open(os.path.join(dir_prefix, "dataset_results.csv"), "w",
+              encoding="utf-8", newline="") as f:
+        f.write(",".join([""] + [t for t, _ in cols]) + "\n")
+        f.write(",".join([""] + [m for _, m in cols]) + "\n")
+        for k in METRICS:
+            f.write(",".join([k] + [dio.csv_float(results[t][m].get(k))
+                                    for t, m in cols]) + "\n")
+    for t, m in cols:
+        print(f"{t:40s} {m:14s} " + "  ".join(
+            f"{k}={results[t][m][k]}" for k in METRICS))
+    return results
+
+
+def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
+    """The CLI. ``report`` (Python callers only) collects each mode's
+    decisions, walls and kernel launches (``batched.run_monocular_batched``)
+    and the results table; it is also returned."""
+    parser = argparse.ArgumentParser(
+        description="cheetah reconstruction over a dataset of trials "
+                    "(PyTorch port)")
+    parser.add_argument("--root_dir", type=str, default="./cheetah_videos")
+    parser.add_argument("--out_dir_prefix", type=str, default="./out")
+    parser.add_argument("--run_monocular", action="store_true")
+    parser.add_argument("--override_default_cam", action="store_true")
+    parser.add_argument("--clean", action="store_true",
+                        help="regenerate reconstructions before analysis")
+    parser.add_argument("--materialize_synthetic", action="store_true",
+                        help="render the synthetic test set into root_dir")
+    parser.add_argument("--batched", action="store_true",
+                        help="solve each mode's whole trial set as one "
+                             "batch (float32) on the device")
+    parser.add_argument("--trials", type=int, default=None,
+                        help="limit to the first N test-set trials")
+    parser.add_argument("--no_ground_anchor", action="store_true",
+                        help="disable the monocular ground-plane depth "
+                             "anchor (ray shift + anchored polish)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device of the solves (default: the "
+                             "current CUDA device; 'cpu' for the CPU)")
+    args = parser.parse_args(argv)
+
+    test_set = TEST_SET[: args.trials] if args.trials else TEST_SET
+    cam_overrides = CAM_OVERRIDES if args.override_default_cam else None
+    if cam_overrides is not None and args.trials:
+        cam_overrides = cam_overrides[: args.trials]
+    if args.materialize_synthetic:
+        made = materialize_synthetic_testset(args.root_dir)
+        print(f"materialized {len(made)} synthetic trials in {args.root_dir}")
+    if args.run_monocular:
+        if args.clean:
+            if not args.batched:
+                raise NotImplementedError(
+                    "the serial per-trial path (--run_monocular --clean "
+                    "without --batched) is not ported; pass --batched")
+            from . import batched
+            rep = report if report is not None else {}
+            rep.setdefault("modes", {})
+            batched.run_monocular_batched(
+                args.root_dir, args.out_dir_prefix, test_set, cam_overrides,
+                modes=("ground-truth", "default", "data-driven",
+                       "physics-based"),
+                ground_anchor=not args.no_ground_anchor,
+                device=args.device, report=rep["modes"])
+        res = dataset_post_process(args.root_dir, args.out_dir_prefix,
+                                   test_set, cam_overrides)
+        if report is not None:
+            report["results"] = res
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,8 @@
 Port of ``cheetah_pose_estimation_tpu/priors/dataset.py``. A pose table is
 28 pose columns (``POSE_COLUMNS``) of concatenated segments, each segment
 delimited by an index that resets to 0. The JAX loader reads it with
-pandas; here the CSV form is read with numpy (the port runs without pandas),
-and the ``.h5`` form is not read yet.
+pandas; here the CSV form is read and written with numpy (the port runs
+without pandas), and the ``.h5`` form is not read yet.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import os
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
+
+from ..data.io import csv_float
 
 POSE_COLUMNS = [
     "base_x", "base_y", "base_z", "base_phi", "base_theta", "base_psi",
@@ -43,6 +45,19 @@ def load_pose_dataset(path: str) -> PoseTable:
                       ndmin=2)
     return PoseTable(index=rows[:, 0].astype(np.int64), data=rows[:, 1:],
                      columns=tuple(header[1:]))
+
+
+def save_pose_dataset(path: str, table: PoseTable) -> None:
+    """Write a pose table as CSV, as ``pandas.DataFrame.to_csv`` writes the
+    JAX package's frame (a header row with an empty first field, then the
+    index and the pose columns; floats as ``repr``), so both packages read
+    it."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        f.write(",".join([""] + list(table.columns)) + "\n")
+        for i, row in zip(table.index, np.asarray(table.data, np.float64)):
+            f.write(",".join([str(int(i))] + [csv_float(v) for v in row])
+                    + "\n")
 
 
 def segment_bounds(index: np.ndarray) -> List[Tuple[int, int]]:

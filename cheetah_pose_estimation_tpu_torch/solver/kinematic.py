@@ -6,12 +6,13 @@ Port of ``cheetah_pose_estimation_tpu/solver/kinematic.py`` for the default
 configuration (``KinematicConfig()``: redescending measurement loss,
 joint-limit hinges, joint-manifold weld, Tikhonov floor) and for the
 data-driven mode's terms: the GMM pose prior, the AR motion anchor and the
-base-pose anchor. Every function takes a batch of trials: q (B, N, 54),
-``KinematicData`` leaves with a leading trial axis, and a per-trial
-annealing scale (B,). The measurement loss is the redescending one or, for
-the physics stage, the Huber loss (``loss="huber"``). The ground-plane and
-live-shutter terms are not ported yet and raise ``NotImplementedError`` when
-switched on.
+base-pose anchor; and for the monocular ground-plane polish the ground,
+penetration and no-slip terms. Every function takes a batch of trials:
+q (B, N, 54), ``KinematicData`` leaves with a leading trial axis, and a
+per-trial annealing scale (B,). The measurement loss is the redescending
+one or, for the physics stage, the Huber loss (``loss="huber"``). The
+live-shutter coupling is not ported yet and raises ``NotImplementedError``
+when switched on.
 """
 from __future__ import annotations
 
@@ -29,6 +30,10 @@ from ..utils.device import Tables, constant
 NQ = 54
 BANDWIDTH = 3
 _ACC_STENCIL = np.array([1.0, -3.0, 3.0, -1.0])
+# paw-marker rows of the 24-marker FK, ordered like dynamics.eom.FOOT_NAMES
+# (HFL, HFR, HBL, HBR) so stance matrices from pipeline.contacts line up
+_PAW_IDX = [sk.MARKERS.index(m) for m in
+            ("l_front_paw", "r_front_paw", "l_back_paw", "r_back_paw")]
 
 
 class CameraSet(NamedTuple):
@@ -70,6 +75,9 @@ class KinematicData(NamedTuple):
     sd_tau: torch.Tensor = np.zeros(1)          # (B, C) shutter delays
     sd_vel: torch.Tensor = np.zeros((1, 3))     # (B, N, 3)
     sd_acc: torch.Tensor = np.zeros((1, 3))     # (B, N, 3)
+    # ground-plane anchor: the plane's elevation (B,) and a per-frame
+    # per-foot stance confidence (B, N, 4) in [0, 1]; zero stance weights
+    # (the default) leave only the penetration hinge
     ground_z: torch.Tensor = np.zeros(())
     stance_w: torch.Tensor = np.zeros((1, 4))
     # per-trial weight of the pose-prior term (B,): 1 on gate-accepted
@@ -100,6 +108,11 @@ class KinematicConfig:
     cam_multipliers: Tuple[float, ...] = ()
     live_shutter: bool = False
     weld_weight: float = 1e6
+    # ground-plane anchor weights: a quadratic pull of stance-foot z onto
+    # the plane (1/m^2), a one-sided hinge keeping every foot above it on
+    # all valid frames, and a quadratic on the frame-to-frame xy
+    # displacement of stance feet (couples q_t and q_t-1 through the banded
+    # lower block)
     ground_weight: float = 0.0
     penetration_weight: float = 0.0
     noslip_weight: float = 0.0
@@ -255,9 +268,6 @@ class KinematicFTE:
     def __init__(self, config: KinematicConfig, subject: SubjectParams):
         unported = [name for name, on in (
             ("live_shutter", config.live_shutter),
-            ("ground/penetration/noslip", config.ground_weight > 0.0
-             or config.penetration_weight > 0.0
-             or config.noslip_weight > 0.0),
             ("loss=" + config.loss,
              config.loss not in ("redescending", "huber"))) if on]
         if unported:
@@ -271,6 +281,9 @@ class KinematicFTE:
         self._A28 = sk.A_REL      # (28, 54)
         self._base_anchor = (config.base_anchor_trans > 0.0
                              or config.base_anchor_rot > 0.0)
+        self._ground_on = (config.ground_weight > 0.0
+                           or config.penetration_weight > 0.0
+                           or config.noslip_weight > 0.0)
         self.tables = Tables()
 
     def _table(self, name: str, like: torch.Tensor) -> torch.Tensor:
@@ -353,6 +366,8 @@ class KinematicFTE:
             motion = (data.ar.valid[..., None] * data.ar.weight[:, None, :]
                       * r * r).sum((1, 2))
         penalty = self._limit_cost(q, fv)
+        if self._ground_on:
+            penalty = penalty + self._ground_cost(pts, data)
         if cfg.weld_weight > 0.0:
             # continuation: soft joint manifold at wide annealing scales
             rw = sk.joint_residuals(q)
@@ -412,6 +427,86 @@ class KinematicFTE:
         rb = q[..., :6] - data.base_ref.to(q.dtype).expand(q.shape[0],
                                                            q.shape[1], 6)
         return wb, rb
+
+    # -- ground-plane anchor -------------------------------------------------
+    @staticmethod
+    def _paws(x: torch.Tensor) -> torch.Tensor:
+        """The paw rows (B, N, 4, ...) of per-marker x (B, N, 24, ...)."""
+        idx = constant("paw_idx", x, lambda: np.asarray(_PAW_IDX),
+                       dtype=torch.long)
+        return x.index_select(2, idx)
+
+    def _ground_inputs(self, paw: torch.Tensor, data: KinematicData):
+        """Plane elevation (B, 1, 1) and stance weights (B, N, 4) masked by
+        frame_valid, for paw positions (B, N, 4, 3)."""
+        B, N = paw.shape[0], paw.shape[1]
+        gz = data.ground_z.to(paw.dtype).reshape(-1, 1, 1)
+        sw = data.stance_w.to(paw.dtype).expand(B, N, 4) \
+            * data.frame_valid[..., None]
+        return gz, sw
+
+    def _ground_cost(self, pts: torch.Tensor, data: KinematicData
+                     ) -> torch.Tensor:
+        """(B,) ground, penetration and no-slip costs of the markers
+        (B, N, 24, 3)."""
+        cfg = self.config
+        paw = self._paws(pts)                                    # (B,N,4,3)
+        fz = paw[..., 2]
+        gz, sw = self._ground_inputs(paw, data)
+        cost = paw.new_zeros(paw.shape[0])
+        if cfg.ground_weight > 0.0:
+            r = fz - gz
+            cost = cost + cfg.ground_weight * (sw * r * r).sum((1, 2))
+        if cfg.penetration_weight > 0.0:
+            pen = torch.clamp(gz - fz, min=0.0)
+            cost = cost + cfg.penetration_weight * (
+                data.frame_valid[..., None] * pen * pen).sum((1, 2))
+        if cfg.noslip_weight > 0.0:
+            dxy = paw[:, 1:, :, :2] - paw[:, :-1, :, :2]         # (B,N-1,4,2)
+            wns = cfg.noslip_weight * sw[:, 1:] * sw[:, :-1]
+            cost = cost + (wns * (dxy * dxy).sum(-1)).sum((1, 2))
+        return cost
+
+    def _ground_normal(self, pts, Jm, data: KinematicData, g, Hdiag, lower):
+        """Add the ground, penetration and no-slip terms' gradient and GN
+        curvature to (g, Hdiag, lower). The penetration hinge is one-sided:
+        its GN weight is on only where a foot is below the plane. No-slip
+        couples frames t and t-1: its cross block H[t, t-1] goes to
+        ``lower[:, 0, t-1]``."""
+        cfg = self.config
+        N = pts.shape[1]
+        paw, Jpaw = self._paws(pts), self._paws(Jm)              # (B,N,4,3,54)
+        fz, Jz = paw[..., 2], Jpaw[..., 2, :]
+        gz, sw = self._ground_inputs(paw, data)
+        if cfg.ground_weight > 0.0:
+            wg = cfg.ground_weight * sw
+            g = g + 2.0 * torch.einsum("btf,btfj->btj", wg * (fz - gz), Jz)
+            Hdiag = Hdiag + 2.0 * torch.einsum("btf,btfi,btfj->btij",
+                                               wg, Jz, Jz)
+        if cfg.penetration_weight > 0.0:
+            pen = torch.clamp(gz - fz, min=0.0)
+            wp = cfg.penetration_weight * data.frame_valid[..., None]
+            g = g - 2.0 * torch.einsum("btf,btfj->btj", wp * pen, Jz)
+            Hdiag = Hdiag + 2.0 * torch.einsum(
+                "btf,btfi,btfj->btij", wp * (pen > 0).to(pen.dtype), Jz, Jz)
+        if cfg.noslip_weight > 0.0:
+            Jxy = Jpaw[..., :2, :]                               # (B,N,4,2,54)
+            dxy = paw[:, 1:, :, :2] - paw[:, :-1, :, :2]         # (B,N-1,4,2)
+            wns = cfg.noslip_weight * sw[:, 1:] * sw[:, :-1]     # (B,N-1,4)
+            g = g.clone()
+            g[:, 1:] += 2.0 * torch.einsum("btf,btfd,btfdj->btj", wns, dxy,
+                                           Jxy[:, 1:])
+            g[:, :-1] += -2.0 * torch.einsum("btf,btfd,btfdj->btj", wns,
+                                             dxy, Jxy[:, :-1])
+            Hdiag = Hdiag.clone()
+            Hdiag[:, 1:] += 2.0 * torch.einsum(
+                "btf,btfdi,btfdj->btij", wns, Jxy[:, 1:], Jxy[:, 1:])
+            Hdiag[:, :-1] += 2.0 * torch.einsum(
+                "btf,btfdi,btfdj->btij", wns, Jxy[:, :-1], Jxy[:, :-1])
+            lower = lower.clone()
+            lower[:, 0, :N - 1] += -2.0 * torch.einsum(
+                "btf,btfdi,btfdj->btij", wns, Jxy[:, 1:], Jxy[:, :-1])
+        return g, Hdiag, lower
 
     # -- joint limits --------------------------------------------------------
     def _limit_values(self, q: torch.Tensor):
@@ -514,11 +609,16 @@ class KinematicFTE:
             Hb = torch.cat([2.0 * wb, wb.new_zeros(NQ - 6)])
             Hdiag = Hdiag + fv[..., None] * torch.diag(Hb)
 
+        lower = H_acc.lower
+        if self._ground_on:
+            g, Hdiag, lower = self._ground_normal(pts, Jm, data, g, Hdiag,
+                                                  lower)
+
         # padded frames: identity anchor keeps H nonsingular; + Tikhonov
         pad = (1.0 - data.frame_valid)[..., None, None]
         eye = torch.eye(NQ, dtype=q.dtype, device=q.device)
         Hdiag = Hdiag + (pad + cfg.tikhonov) * eye
-        return g, banded.BlockBanded(diag=Hdiag, lower=H_acc.lower)
+        return g, banded.BlockBanded(diag=Hdiag, lower=lower)
 
     # -- annealed solve ------------------------------------------------------
     def make_solver(self,

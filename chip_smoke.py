@@ -64,6 +64,36 @@ Phases (any failure exits nonzero):
    same pruned stance matrices, mean MPJPE within 2 %, mean CoM-velocity
    within 5 %, the same ``ok``; the JAX float32 run beside it. Profile: one
    more physics run under torch.profiler.
+9. cli     — the dataset CLI (``pipeline/run_dataset.main``) on the
+   synthetic test set: write the procedural pose tables and render the
+   10-trial tree (6 fisheye cameras, correlated DLC failures), its digest
+   held against the JAX CLI's tree (``tests/data/jax_cli_f32.json``: the
+   same likelihood gate pattern, pixels within 1e-3 px); then
+   ``--run_monocular --batched --clean`` once, all four modes (multi-view
+   ground truth, default with the ground-plane polish, data-driven,
+   physics-based), with the kernel's launches per mode and shape (each
+   mode > 0), s/trial, and per-trial MPE, MPJPE and CoM-velocity RMSE
+   against the multi-view solve (MPJPE against the synthetic truth too).
+   The kernel against its plain version in float64 on the 6-camera normal
+   systems and on the anchored polish's systems (lam = 1e-2, rel error <=
+   7e-4). Agreement with the JAX float32 CLI run on the same input (the
+   JAX CLI run on the port's rendering of the tree, which the tree is
+   checked to equal within 1e-9 px): the ground-truth mode's mean MPJPE
+   against the truth within 2 % either way; each monocular mode's mean MPE
+   and MPJPE within 2 %, mean CoM-velocity within 5 %, either way, as they
+   are or once the witnessed trials are set aside: those on which the
+   port's value is the lower and its saved final objective is lower than
+   the JAX run's (the same problem, solved further down), and those on
+   which the JAX reference does not reproduce itself (its runs on its own
+   and on the port's rendering, which differ by float32 round-off, differ
+   there by more than the bar); the prior gate, scan shifts, polish
+   shifts and changes and the physics stance matrices printed beside the
+   JAX run's. The same comparison with the JAX run on its own tree is
+   printed beside. Every artifact the JAX run wrote (``fte.pickle``,
+   ``cam*_fte.csv``, the contact JSON files, ``dataset_results.csv``)
+   present with the same keys and shapes. Then the 6-camera solves once
+   more under torch.profiler (device events per LM step, busy share of the
+   CLI run's unprofiled solve wall).
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -836,6 +866,490 @@ def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
     return by_shape, worst_rel, worst_abs
 
 
+
+# -- phase 9: the dataset CLI ------------------------------------------------
+
+CLI_MODES = ("ground-truth", "default", "data-driven", "physics-based")
+CLI_DIRS = {"ground-truth": "fte_kinematic", "default": "fte_kinematic_orig_{c}",
+            "data-driven": "fte_kinematic_{c}",
+            "physics-based": "fte_kinetic_{c}"}
+TOL_PX = 1e-3         # rendered pixels: port (float64) vs JAX CLI (float32)
+TOL_PX_SAME = 1e-9    # the port's float64 rendering on two hosts
+TOL_OBJ = 1e-4        # a lower final objective: lower by more than this share
+
+
+# How a rendered tree and the CLI's outputs are recorded, the same for both
+# packages: tests/data/jax_cli_reference.py imports these three.
+
+def digest(xy, lik, thresh=0.5):
+    """Digest of one trial's DLC arrays: xy (F, C, L, 2), likelihood
+    (F, C, L). The gate pattern is held exactly (md5 of the packed mask);
+    the pixels through four projections on random weights whose absolute
+    values sum to 1, so that two trees whose pixels differ by at most d
+    give projections that differ by at most d."""
+    import hashlib
+
+    xy = np.nan_to_num(np.asarray(xy, np.float64)).ravel()
+    lik = np.asarray(lik, np.float64)
+    gate = lik > thresh
+    proj = []
+    for k in range(4):
+        w = np.random.default_rng(1234 + k).normal(size=xy.size)
+        proj.append(float(w @ xy / np.abs(w).sum()))
+    return {"shape": list(np.shape(lik)),
+            "gate_md5": hashlib.md5(np.packbits(gate).tobytes()).hexdigest(),
+            "n_gated": int(gate.sum()), "lik_sum": float(lik.sum()),
+            "px_proj": proj}
+
+
+def describe(v):
+    """Keys and shapes of a pickled artifact value."""
+    if isinstance(v, dict):
+        return {k: describe(x) for k, x in sorted(v.items())}
+    if v is None or isinstance(v, (int, float, str)):
+        return type(v).__name__ if v is not None else "None"
+    return list(np.shape(v))
+
+
+def artifacts(out_dir):
+    """Layout of the CLI's artifacts under ``out_dir``, by relative path."""
+    import csv
+    import pickle
+    from glob import glob
+
+    out = {}
+    for p in sorted(glob(os.path.join(out_dir, "**", "*"), recursive=True)):
+        rel = os.path.relpath(p, out_dir)
+        if os.path.isdir(p):
+            continue
+        name = os.path.basename(p)
+        if name == "fte.pickle":
+            with open(p, "rb") as f:
+                out[rel] = describe(pickle.load(f))
+        elif name.startswith("cam") and name.endswith("_fte.csv"):
+            with open(p, encoding="utf-8") as f:
+                rows = list(csv.reader(f))
+            # the 2-level (bodyparts, coords) header, then one row a frame
+            out[rel] = {"header": rows[:2], "rows": len(rows) - 2,
+                        "frames": [rows[2][0], rows[-1][0]]}
+        elif name.startswith("autogen-contact") and name.endswith(".json"):
+            with open(p, encoding="utf-8") as f:
+                out[rel] = sorted(json.load(f))
+        elif name == "dataset_results.csv":
+            with open(p, encoding="utf-8") as f:
+                rows = list(csv.reader(f))
+            out[rel] = {"header": rows[:2],
+                        "index": [r[0] for r in rows[2:]]}
+    return out
+
+
+def cli_kernel_check(dev, root, out):
+    """The kernel against its plain version in float64 on the ground-truth
+    mode's 6-camera normal systems at the multi-view initialisation and on
+    the anchored polish's normal systems at the default mode's solutions
+    (each trial's detected stance and its plane, ground, penetration and
+    no-slip terms on), damped and Jacobi-scaled at lam = 1e-2."""
+    import dataclasses
+    import pickle
+
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
+    from cheetah_pose_estimation_tpu_torch.pipeline import batched as pb
+    from cheetah_pose_estimation_tpu_torch.pipeline import depth_anchor
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+    from cheetah_pose_estimation_tpu_torch.solver import gn
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+
+    rows = []
+    for kind in ("ground-truth 6 cameras", "polish"):
+        monocular = kind == "polish"
+        groups = pb._groups(root, run_dataset.TEST_SET, None, monocular)
+        for subject_name, ests in groups.items():
+            subject = params.get_subject(subject_name)
+            datas = [e.data for e in ests]
+            cfg = kin.KinematicConfig()
+            if monocular:
+                qs, gz, stance = [], [], []
+                for e in ests:
+                    with open(os.path.join(out, e.data_path, CLI_DIRS[
+                            "default"].format(c=e.scene.cam_idx),
+                            "fte.pickle"), "rb") as f:
+                        q = pickle.load(f)["q"]
+                    ci = e.scene.cam_idx
+                    g = e.params.ground_plane_height
+                    _, stw, _ = depth_anchor.ray_depth_correction(
+                        q, subject, e.scene.fps, g, e.scene.r_arr[ci],
+                        e.scene.t_arr[ci])
+                    qs.append(q)
+                    gz.append(g)
+                    stance.append(stw)
+                data_list = [d._replace(ground_z=np.asarray(g),
+                                        stance_w=s)
+                             for d, g, s in zip(datas, gz, stance)]
+                cfg = dataclasses.replace(cfg, **depth_anchor.POLISH_CFG)
+            else:
+                qs, data_list = [e.q0 for e in ests], datas
+            batched, q = pbatch.pad_and_stack(
+                data_list, qs, n_frames=pb._n_frames(datas), device=dev)
+            fte = kin.KinematicFTE(cfg, subject)
+            g, H = fte._normal(q, batched, 1.0)
+            B = q.shape[0]
+            Hs, rhs, _ = gn.scaled_system(g, H, torch.full((B,), 1e-2,
+                                                           device=dev), 1e-8)
+            d32, l32, r32 = (x.contiguous() for x in (Hs.diag, Hs.lower,
+                                                      rhs))
+            x = cuda_banded.solve(d32, l32, r32)
+            torch.cuda.synchronize()
+            ref = cuda_banded.solve_reference(d32.double(), l32.double(),
+                                              r32.double())
+            if not (torch.isfinite(x).all() and torch.isfinite(ref).all()):
+                raise AssertionError(f"non-finite solve on the {kind} "
+                                     "systems")
+            abs_err = float((x.double() - ref).abs().max())
+            row = {"systems": kind, "B": B, "N": q.shape[1],
+                   "cameras": int(batched.meas.shape[2]),
+                   "stance_frames": float(batched.stance_w.sum()),
+                   "rel_err": abs_err / float(ref.abs().max()),
+                   "max_abs_err": abs_err}
+            log(f"# cli: kernel {row}")
+            rows.append(row)
+            if row["rel_err"] > TOL_REL:
+                raise AssertionError(f"kernel rel err {row['rel_err']:.3e} > "
+                                     f"{TOL_REL} on the {kind} systems")
+    return rows
+
+
+def cli_scores(root, odir, paths, cam):
+    """Per mode, per trial: ``run_dataset.trial_scores`` of the mode's
+    ``fte.pickle`` against the multi-view solve, MPJPE against the
+    synthetic truth, and the final objective the mode saved."""
+    import pickle
+
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+
+    out = {}
+    for m in CLI_MODES:
+        rows = []
+        for p in paths:
+            with open(os.path.join(odir, p, "fte_kinematic", "fte.pickle"),
+                      "rb") as f:
+                gt = pickle.load(f)
+            with open(os.path.join(odir, p, CLI_DIRS[m].format(c=cam),
+                                   "fte.pickle"), "rb") as f:
+                d = pickle.load(f)
+            with open(os.path.join(root, p, "synthetic_gt.pickle"),
+                      "rb") as f:
+                true = np.asarray(pickle.load(f)["positions"], np.float64)
+            if not np.isfinite(d["q"]).all():
+                raise AssertionError(f"non-finite {m} solution for {p}")
+            s = run_dataset.trial_scores(gt, d)
+            pos = np.asarray(d["positions"], np.float64)
+            err = (pos - pos.mean(1, keepdims=True)) \
+                - (true - true.mean(1, keepdims=True))
+            s["mpjpe_vs_truth"] = float(np.linalg.norm(err, axis=2).mean()
+                                        * 1e3)
+            s["obj_cost"] = float(d["obj_cost"])
+            rows.append(s)
+        out[m] = rows
+    return out
+
+
+def cli_gap(port, jax, port_obj, jax_obj, comparable, unstable=None):
+    """Agreement of one per-mode mean with the JAX run's, and the part of
+    the gap no witness accounts for. A trial is witnessed when (a) the
+    port's value is the lower one, its saved final objective is lower than
+    the JAX run's by more than ``TOL_OBJ`` of it and the two objectives are
+    of the same problem (``comparable``): the port's solve went further
+    down the same objective; or (b) ``unstable``: the JAX reference itself
+    does not reproduce its value on that trial (its runs on two renderings
+    of the tree that differ by float32 round-off disagree by more than the
+    bar). The unexplained gap is the mean's gap with JAX's value in place
+    of the port's on each witnessed trial; the check holds the smaller of
+    the two gaps to its bar."""
+    port, jax = np.asarray(port), np.asarray(jax)
+    further = (port < jax) & (np.asarray(port_obj) < np.asarray(jax_obj)
+                              * (1.0 - TOL_OBJ)) & np.asarray(comparable)
+    unstable = np.zeros(len(port), bool) if unstable is None \
+        else np.asarray(unstable)
+    witnessed = further | unstable
+    scale = max(abs(float(jax.mean())), 1e-12)
+    return {"port": float(port.mean()), "jax_f32": float(jax.mean()),
+            "rel": float(port.mean() - jax.mean()) / scale,
+            "witnessed": int(witnessed.sum()),
+            "witnessed_objective": int(further.sum()),
+            "witnessed_unstable": int(unstable.sum()),
+            "rel_unexplained": float(np.where(witnessed, jax, port).mean()
+                                     - jax.mean()) / scale}
+
+
+def cli_agree(modes, paths, run, label, other=None):
+    """The port's CLI modes against one recorded JAX CLI run ``run`` (its
+    ``modes`` and ``decisions``): each per-mode mean within 2 %
+    (CoM-velocity 5 %) of the JAX run's, both ways, as it is or once the
+    witnessed trials are set aside (``cli_gap``: the port's solve reached a
+    lower objective of the same problem, or, given ``other``, the JAX run
+    on the other rendering of the tree, the reference does not reproduce
+    itself there); the discrete decisions printed beside the JAX run's.
+    Returns the comparison, with the means outside their bars under
+    ``bad``."""
+    dec = run["decisions"]
+    same_stance = [modes["physics-based"]["stance"].get(p)
+                   == dec["stance"].get(p) for p in paths]
+    agree, bad = {}, []
+    for m in CLI_MODES:
+        rm = run["modes"][m]
+        rows = modes[m]["per_trial"]
+        comparable = same_stance if m == "physics-based" else [True] * len(
+            paths)
+        keys = (("mpjpe_vs_truth", TOL_MPJPE),) if m == "ground-truth" \
+            else (("mpe", TOL_MPJPE), ("mpjpe", TOL_MPJPE),
+                  ("CoM vel rmse", TOL_COMVEL))
+        a = {}
+        for k, tol in keys:
+            rk = "com_vel_rmse" if k == "CoM vel rmse" else k
+            jx = np.array([rm[p][rk] for p in paths])
+            unstable = None
+            if other is not None and m != "ground-truth":
+                jo = np.array([other["modes"][m][p][rk] for p in paths])
+                unstable = np.abs(jx - jo) > tol * np.abs(jo)
+            # the multi-view truth is held both ways, with no trial set aside
+            a[k] = dict(cli_gap(
+                [s[k] for s in rows], jx, [s["obj_cost"] for s in rows],
+                [rm[p]["obj_cost"] for p in paths],
+                comparable if m != "ground-truth" else [False] * len(paths),
+                unstable), tol=tol)
+            if min(abs(a[k]["rel"]), abs(a[k]["rel_unexplained"])) > tol:
+                bad.append((m, k, a[k]))
+        agree[m] = a
+        log(f"# cli agree ({label}): {m}: " + ", ".join(
+            f"{k} port {v['port']:.3f} jax_f32 {v['jax_f32']:.3f} (rel "
+            f"{v['rel']:+.4f}; witnessed trials {v['witnessed']} (objective "
+            f"{v['witnessed_objective']}, reference unstable "
+            f"{v['witnessed_unstable']}), unexplained "
+            f"{v['rel_unexplained']:+.4f}, bar ±{v['tol']})"
+            for k, v in a.items()))
+        for p, s, c in zip(paths, rows, comparable):
+            log(f"# cli agree ({label}): {m} {p} MPE port {s['mpe']:.2f} jax"
+                f" {rm[p]['mpe']:.2f}, MPJPE port {s['mpjpe']:.2f} jax "
+                f"{rm[p]['mpjpe']:.2f}, CoM-vel port {s['CoM vel rmse']:.4f}"
+                f" jax {rm[p]['com_vel_rmse']:.4f}, objective port "
+                f"{s['obj_cost']:.6g} jax {rm[p]['obj_cost']:.6g}"
+                + ("" if c else " (different stance)"))
+    for k, m in (("prior_ok", "data-driven"), ("scan_shifts", "data-driven"),
+                 ("polish_ray_shift", "default"),
+                 ("polish_changed", "default"),
+                 ("stance", "physics-based")):
+        port = [modes[m][k].get(p) for p in paths]
+        jax = [dec[k].get(p) for p in paths]
+        same = port == jax
+        agree[k] = {"same": same}
+        if k == "stance":
+            for p, sp, sj in zip(paths, port, jax):
+                if sp != sj:
+                    log(f"# cli agree ({label}): stance {p} differs: port "
+                        f"frames {int(np.sum(sp))} jax {int(np.sum(sj))}")
+            log(f"# cli agree ({label}): stance frames per trial port "
+                f"{[int(np.sum(s)) for s in port]} jax "
+                f"{[int(np.sum(s)) for s in jax]} "
+                f"({'same' if same else 'different'})")
+        else:
+            log(f"# cli agree ({label}): {k} port {port} jax {jax} "
+                f"({'same' if same else 'different'})")
+    agree["bad"] = bad
+    return agree
+
+
+def phase_cli(dev, results, ref):
+    """The dataset CLI on the synthetic test set: render the tree, run all
+    four modes through ``run_dataset.main``, check the kernel on the
+    6-camera and polish systems, hold the results against the JAX float32
+    CLI run ``ref`` (``tests/data/jax_cli_f32.json``), and profile the
+    6-camera solves. Returns (launches per shape of the CLI run, worst rel
+    err, worst abs err)."""
+    import tempfile
+
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+    from cheetah_pose_estimation_tpu_torch.ops import banded, cuda_banded
+    from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
+    from cheetah_pose_estimation_tpu_torch.pipeline import batched as pb
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.priors import dataset
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="cli_")
+    root, odir = os.path.join(work, "videos"), os.path.join(work, "out")
+    dset = os.path.join(work, "priors", "dataset_full_pose.csv")
+    paths = [os.path.join(d, c, t) for c, d, t in run_dataset.TEST_SET]
+
+    # 1. the training tables and the tree, and the tree's digest
+    t0 = time.perf_counter()
+    dataset.save_pose_dataset(dset, bench_lib.procedural_pose_table(
+        bench_lib.TRAIN_SEEDS))
+    dataset.save_pose_dataset(
+        os.path.join(os.path.dirname(dset), "validation_dataset.csv"),
+        bench_lib.procedural_pose_table(bench_lib.VAL_SEEDS))
+    run_dataset.main(["--materialize_synthetic", "--root_dir", root])
+    out["render_s"] = time.perf_counter() - t0
+    tree_ok = True
+    for p in paths:
+        xy, lik, _ = dio.load_dlc_points(os.path.join(root, p, "dlc"))
+        dg = digest(xy, lik)
+        gph = dio.load_metadata(os.path.join(root, p))["ground_plane_height"]
+        r = ref["tree"][p]
+        dpx = max(abs(a - b) for a, b in zip(dg["px_proj"], r["px_proj"]))
+        same = (dg["gate_md5"] == r["gate_md5"]
+                and dg["n_gated"] == r["n_gated"]
+                and abs(dg["lik_sum"] - r["lik_sum"]) <= 1e-9
+                and dpx <= TOL_PX
+                and abs(gph - r["ground_plane_height"]) <= 1e-6)
+        rp = ref["port_tree"]["tree"][p]
+        dpp = max(abs(a - b) for a, b in zip(dg["px_proj"], rp["px_proj"]))
+        same_input = (dg["gate_md5"] == rp["gate_md5"] and dpp <= TOL_PX_SAME
+                      and abs(gph - rp["ground_plane_height"]) <= 1e-12)
+        tree_ok &= same and same_input
+        log(f"# cli: tree {p} {dg['shape']} gated {dg['n_gated']} md5 "
+            f"{dg['gate_md5'][:8]} | jax md5 {r['gate_md5'][:8]}, |px proj "
+            f"diff| {dpx:.2e}, ground {gph:.6f} vs "
+            f"{r['ground_plane_height']:.6f}: "
+            f"{'same' if same else 'DIFFERENT'} | the reference run's input"
+            f": |px proj diff| {dpp:.2e}, "
+            f"{'same' if same_input else 'DIFFERENT'}")
+    log(f"# cli: tables and tree rendered in {out['render_s']:.2f} s (host)")
+    if not tree_ok:
+        raise AssertionError("the rendered tree differs from the JAX CLI's "
+                             "or from the reference run's input")
+
+    # 2. the main path: the four modes through the CLI's main, with the
+    # plain banded solvers counted (none may run on the card path)
+    os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
+    plain = {"scan": 0, "cr": 0}
+    saved = banded.solve, banded.cr_solve
+
+    def counted(name, fn):
+        def run(*a, **k):
+            plain[name] += 1
+            return fn(*a, **k)
+        return run
+
+    banded.solve, banded.cr_solve = counted("scan", saved[0]), \
+        counted("cr", saved[1])
+    cuda_banded.reset_launches()
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        run_dataset.main(["--run_monocular", "--batched", "--clean",
+                          "--root_dir", root, "--out_dir_prefix", odir],
+                         report=report)
+        torch.cuda.synchronize()
+    finally:
+        banded.solve, banded.cr_solve = saved
+    out["cli_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    out["plain_solves"] = plain
+    log(f"# cli: run_dataset.main {out['cli_s']:.2f} s, kernel launches "
+        f"{shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        raise AssertionError(f"the CLI ran plain banded solves on the card: "
+                             f"{plain}")
+    prev, modes = {}, {}
+    cam = dio.load_metadata(os.path.join(root, paths[0]))["monocular_cam"]
+    per_mode = cli_scores(root, odir, paths, cam)
+    for m in CLI_MODES:
+        rep = report["modes"][m]
+        snap = rep["launches"]
+        launches = {k: v - prev.get(k, 0) for k, v in snap.items()
+                    if v - prev.get(k, 0)}
+        prev = snap
+        n = len(rep["trials"])
+        scores = per_mode[m]
+        mo = {"trials": n, "wall_s": rep["wall_s"],
+              "solve_s": rep["solve_s"], "s_per_trial": rep["wall_s"] / n,
+              "lm_steps": int(sum(launches.values())),
+              "launches_by_shape": shape_keys(launches), "per_trial": scores}
+        for k in ("prior_ok", "scan_shifts", "polish_ray_shift",
+                  "polish_changed", "stance"):
+            if k in rep:        # per trial, in the subject groups' order
+                mo[k] = dict(zip(rep["trials"], rep[k]))
+        modes[m] = mo
+        log(f"# cli: mode {m}: {n} trials, wall {rep['wall_s']:.2f} s "
+            f"({mo['s_per_trial']:.4f} s/trial), solve {rep['solve_s']:.2f}"
+            f" s, LM steps {mo['lm_steps']}, launches "
+            f"{mo['launches_by_shape']}")
+        if not launches:
+            raise AssertionError(f"mode {m} did not launch the kernel")
+        for p, s in zip(paths, scores):
+            log(f"# cli: {m} {p} MPE {s['mpe']:.2f} mm MPJPE "
+                f"{s['mpjpe']:.2f} mm CoM-vel {s['CoM vel rmse']:.4f} m/s "
+                f"(vs truth: MPJPE {s['mpjpe_vs_truth']:.2f} mm) objective "
+                f"{s['obj_cost']:.6g}")
+    out["modes"] = modes
+
+    # 3. the kernel on the new kinds of system
+    out["kernel"] = cli_kernel_check(dev, root, odir)
+    worst_rel = max(r["rel_err"] for r in out["kernel"])
+    worst_abs = max(r["max_abs_err"] for r in out["kernel"])
+
+    # 4. agreement with the JAX float32 CLI run on the same input (the
+    # port's tree), decisions beside it, trials where the JAX runs on the
+    # two renderings disagree set aside; the JAX run on its own tree is
+    # printed beside
+    agree = {"same_input": cli_agree(modes, paths, ref["port_tree"],
+                                     "same input", other=ref),
+             "jax_tree": cli_agree(modes, paths, ref, "JAX tree")}
+    bad = agree["same_input"].pop("bad")
+    agree["jax_tree"].pop("bad")
+    # the artifacts the JAX run wrote, with the same keys and shapes
+    mine = artifacts(odir)
+    missing = [p for p in ref["artifacts"] if p not in mine]
+    differ = [p for p, v in ref["artifacts"].items()
+              if p in mine and mine[p] != v]
+    agree["artifacts"] = {"jax": len(ref["artifacts"]), "port": len(mine),
+                          "missing": missing, "differ": differ}
+    log(f"# cli agree: artifacts: JAX {len(ref['artifacts'])}, port "
+        f"{len(mine)}, missing {missing[:5]} ({len(missing)}), differ "
+        f"{differ[:5]} ({len(differ)})")
+    for p in differ[:3]:
+        log(f"# cli agree: {p}: port {mine[p]} jax {ref['artifacts'][p]}")
+    out["agree"] = agree
+    if bad or missing or differ:
+        raise AssertionError(f"the CLI disagrees with the JAX run: {bad}, "
+                             f"missing {missing[:5]}, differ {differ[:5]}")
+
+    # 5. the ground-truth mode's 6-camera solves (one per subject group)
+    # once more under torch.profiler, against the CLI run's unprofiled
+    # solve wall of the same solves
+    solves = []
+    for subject_name, ests in pb._groups(root, run_dataset.TEST_SET, None,
+                                         monocular=False).items():
+        datas = [e.data for e in ests]
+        batched, q0b = pbatch.pad_and_stack(
+            datas, [e.q0 for e in ests], n_frames=pb._n_frames(datas),
+            device=dev)
+        solves.append((kin.KinematicFTE(
+            kin.KinematicConfig(), params.get_subject(subject_name))
+            .make_solver(), q0b, batched))
+
+    def run():
+        for fn, q0b, batched in solves:
+            fn(q0b, batched)
+
+    gt = modes["ground-truth"]
+    cuda_banded.reset_launches()
+    prof = profiled(run, gt["solve_s"])
+    prof["lm_steps"] = cuda_banded.launches
+    prof["device_events_per_step"] = prof["device_kernel_launches"] / \
+        prof["lm_steps"]
+    log(f"# cli profile: ground-truth solves (CLI run {gt['solve_s']:.3f} "
+        f"s, {gt['lm_steps']} LM steps) {prof}")
+    out["profile_ground_truth"] = prof
+    results["cli"] = out
+    return by_shape, worst_rel, worst_abs
+
+
 def phase_agree(ctx, rows_kernel, results):
     from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
@@ -913,7 +1427,12 @@ def main():
     dd_shapes, q_dd, gmm_dd, dd_out = phase_dd(dev, ctx, results)
     physics_shapes, phys_rel, phys_abs = phase_physics(
         dev, ctx, q_dd, gmm_dd, dd_out, results)
-    worst_rel, worst_abs = max(worst_rel, phys_rel), max(worst_abs, phys_abs)
+    with open(os.path.join(HERE, "tests", "data", "jax_cli_f32.json"),
+              encoding="utf-8") as f:
+        cli_ref = json.load(f)
+    cli_shapes, cli_rel, cli_abs = phase_cli(dev, results, cli_ref)
+    worst_rel = max(worst_rel, phys_rel, cli_rel)
+    worst_abs = max(worst_abs, phys_abs, cli_abs)
 
     main_shape = timed[0]                     # (10, 64): the finish's shape
     keys = ("kernel_ms", "plain_ms", "cr_ms", "library_ms", "bound_ms",
@@ -924,10 +1443,11 @@ def main():
         "source": "cheetah_pose_estimation_tpu_torch/csrc/banded_solve.cu",
         "replaces": "cheetah_pose_estimation_tpu/ops/pallas_banded.py:262,309",
         "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values())
-        + sum(physics_shapes.values()),
+        + sum(physics_shapes.values()) + sum(cli_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
-                             "physics": shape_keys(physics_shapes)},
+                             "physics": shape_keys(physics_shapes),
+                             "cli": shape_keys(cli_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

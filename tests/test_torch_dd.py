@@ -141,10 +141,11 @@ def test_prior_gradient_matches_autograd(prior_problem):
 
 
 def test_unported_terms_still_raise():
-    for kw in (dict(ground_weight=1.0), dict(live_shutter=True),
-               dict(loss="cauchy")):
+    for kw in (dict(live_shutter=True), dict(loss="cauchy")):
         with pytest.raises(NotImplementedError):
             tkin.KinematicFTE(tkin.KinematicConfig(**kw), SUBJECT)
+    # the ground terms are ported (tests/test_torch_ground.py)
+    tkin.KinematicFTE(tkin.KinematicConfig(ground_weight=1.0), SUBJECT)
 
 
 def test_prior_gate_is_exact():

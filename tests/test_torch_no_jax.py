@@ -1,9 +1,12 @@
 """The PyTorch port runs without JAX, pandas or the JAX package: in a fresh
-interpreter, import the port, build and solve a 2-trial 16-frame problem on
-the CPU, train small priors and run the data-driven stage and then the
-physics stage on it with tiny schedules, then check ``sys.modules``. No module of
-``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its own copies
-of the tables it needs."""
+interpreter where importing ``jax``, ``jaxlib`` or ``pandas`` fails as on a
+machine without them, import the port, build and solve a 2-trial 16-frame
+problem on the CPU, train small priors and run the data-driven stage and
+then the physics stage on it with tiny schedules; render the first trial of the dataset CLI's synthetic test
+set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
+(``run_monocular_batched``, multi-view); then check ``sys.modules``. No
+module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
+own copies of the tables it needs."""
 import os
 import subprocess
 import sys
@@ -13,6 +16,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import sys
+    # as on a machine without them: importing raises ModuleNotFoundError,
+    # importlib.util.find_spec returns None
+    for blocked in ("jax", "jaxlib", "pandas"):
+        sys.modules[blocked] = None
     import numpy as np
     import torch
     torch.set_num_threads(1)
@@ -62,9 +69,34 @@ SCRIPT = textwrap.dedent("""
                                stages=((3.0, 1), (1.0, 2)), timings=timings)
     assert st2.q.shape == (2, 16, 54) and torch.isfinite(st2.q).all()
     assert sorted(timings) == ["curvature", "host_prep", "lm"]
-    bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "pandas",
-                                        "cheetah_pose_estimation_tpu"))
+    import os
+    import tempfile
+    from cheetah_pose_estimation_tpu_torch.data import io
+    from cheetah_pose_estimation_tpu_torch.pipeline import metrics
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+    from cheetah_pose_estimation_tpu_torch.utils import data_ops
+    tmp = tempfile.mkdtemp()
+    run_dataset.TEST_SET = run_dataset.TEST_SET[:1]
+    run_dataset.main(["--materialize_synthetic", "--root_dir", tmp])
+    (c, d, t), = run_dataset.TEST_SET
+    xy, lik, _ = io.load_dlc_points(os.path.join(tmp, d, c, t, "dlc"), 6)
+    assert xy.shape == (40, 6, 24, 2) and lik.shape == (40, 6, 24)
+    rep = {}
+    pb.run_monocular_batched(tmp, os.path.join(tmp, "out"),
+                             run_dataset.TEST_SET, modes=("ground-truth",),
+                             device="cpu", verbose=False, report=rep)
+    out = data_ops.load_pickle(os.path.join(tmp, "out", d, c, t,
+                                            "fte_kinematic", "fte.pickle"))
+    assert out["q"].shape == (40, 54) and np.isfinite(out["q"]).all()
+    truth = data_ops.load_pickle(os.path.join(tmp, d, c, t,
+                                              "synthetic_gt.pickle"))
+    mpjpe = metrics.traj_error(truth["positions"], out["positions"],
+                               centered=True)[0].mean()
+    assert mpjpe < 60.0, mpjpe
+    assert rep["ground-truth"]["trials"] == [os.path.join(d, c, t)]
+    bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+                 and m.split(".")[0] in ("jax", "jaxlib", "pandas",
+                                         "cheetah_pose_estimation_tpu"))
     print("FORBIDDEN", bad)
     assert not bad, bad
 """)
