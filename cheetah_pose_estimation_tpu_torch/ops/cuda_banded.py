@@ -104,22 +104,30 @@ def load_library(path: Path):
     return lib
 
 
+class KernelInputError(RuntimeError):
+    """Tensors the kernel does not take. A ``RuntimeError``, like the
+    build and launch errors: the physics-based mode's fallback, which
+    catches ``ValueError``, never takes it for a failed solve."""
+
+
 def _check(diag: torch.Tensor, lower: torch.Tensor, rhs: torch.Tensor):
     B, N = rhs.shape[0], rhs.shape[1]
     want = {"diag": (B, N, D, D), "lower": (B, BW, N, D, D), "rhs": (B, N, D)}
     for name, t in (("diag", diag), ("lower", lower), ("rhs", rhs)):
         if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, the kernel "
-                             f"takes {want[name]}")
+            raise KernelInputError(f"{name} has shape {tuple(t.shape)}, the "
+                                   f"kernel takes {want[name]}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
         if t.device != rhs.device:
-            raise ValueError("diag, lower and rhs must be on one device")
+            raise KernelInputError("diag, lower and rhs must be on one "
+                                   "device")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise KernelInputError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             "copies its blocks in 16-byte chunks)")
+            raise KernelInputError(f"{name} must be 16-byte aligned (the "
+                                   "kernel copies its blocks in 16-byte "
+                                   "chunks)")
 
 
 def solve(diag: torch.Tensor, lower: torch.Tensor, rhs: torch.Tensor
@@ -130,7 +138,8 @@ def solve(diag: torch.Tensor, lower: torch.Tensor, rhs: torch.Tensor
     if rhs.device.type == "cpu":
         return solve_reference(diag, lower, rhs)
     if rhs.device.type != "cuda":
-        raise ValueError(f"no banded-solve kernel for device {rhs.device}")
+        raise KernelInputError(f"no banded-solve kernel for device "
+                               f"{rhs.device}")
     _check(diag, lower, rhs)
     B, N = rhs.shape[0], rhs.shape[1]
     x = torch.empty_like(rhs)

@@ -3,10 +3,13 @@
 Port of ``cheetah_pose_estimation_tpu/parallel/batch.py``: trials are padded
 to a common frame and camera count and stacked into one ``KinematicData``
 (or, with the physics arrays, ``KineticData``) of tensors with a leading
-trial axis; the production monocular solver
-probes every trial from three heading offsets and finishes only the winner.
-The TPU backend crossover (``backend_for``, ``CR_MAX_BATCH``) is not ported:
-the linear solver follows the tensors' device.
+trial axis. The monocular heading multistart solves every trial from three
+heading offsets: in full (``make_multistart``, ``multistart_single`` for the
+serial path's one trial), or as a short probe of every offset that
+finishes only the winner (``make_kinematic_multistart``, the batched
+production solver). The TPU backend crossover (``backend_for``,
+``CR_MAX_BATCH``) is not ported: the linear solver follows the tensors'
+device.
 """
 from __future__ import annotations
 
@@ -137,6 +140,55 @@ def _pick_restart(st, margin: float, R: int):
     return type(st)(*[x[lane] for x in st])
 
 
+def _perturbed(q0b: torch.Tensor, offs: Tuple[float, ...]) -> torch.Tensor:
+    """The R heading-perturbed copies of q0b (B, N, 54), restart-major."""
+    q0r = []
+    for o in offs:
+        q = q0b.clone()
+        q[:, :, 5] += o
+        q0r.append(q)
+    return torch.cat(q0r)
+
+
+def _repeat(batched: KinematicData, R: int) -> KinematicData:
+    return map_data(lambda x: x.repeat((R,) + (1,) * (x.ndim - 1)), batched)
+
+
+def make_multistart(run, offsets: Tuple[float, ...] = HEADING_RESTARTS,
+                    margin: float = MULTISTART_MARGIN):
+    """A multistart solver ``ms(q0b, batched)``: every trial of the batch
+    solved in full by ``run`` (a batched solver, as returned by
+    ``KinematicFTE.make_solver``) from each of the ``offsets`` heading
+    perturbations, all R x B lanes as one batch, and the best restart kept
+    per trial by the margin rule. ``offsets[0]`` must be the unperturbed
+    0. Monocular problems only: multi-view solves are single-start."""
+    offs = tuple(float(o) for o in offsets)
+    R = len(offs)
+
+    def solve_all(q0b: torch.Tensor, batched: KinematicData):
+        return _pick_restart(run(_perturbed(q0b, offs), _repeat(batched, R)),
+                             margin, R)
+
+    return solve_all
+
+
+def multistart(run, q0b: torch.Tensor, batched: KinematicData,
+               offsets: Tuple[float, ...] = HEADING_RESTARTS,
+               margin: float = MULTISTART_MARGIN):
+    """One-shot :func:`make_multistart`."""
+    return make_multistart(run, offsets, margin)(q0b, batched)
+
+
+def multistart_single(run, q0: torch.Tensor, data: KinematicData,
+                      offsets: Tuple[float, ...] = HEADING_RESTARTS,
+                      margin: float = MULTISTART_MARGIN):
+    """Single-trial multistart (the serial path): ``q0`` (N, 54) and
+    ``data``, the trial's problem as a batch of one; the R restarts are one
+    R-lane batch of the trial's own length. Returns the picked restart's
+    state, with its batch axis of one."""
+    return multistart(run, q0[None], data, offsets, margin)
+
+
 def make_multistart_probe(probe_run, full_run,
                           offsets: Tuple[float, ...] = HEADING_RESTARTS,
                           margin: float = MULTISTART_MARGIN):
@@ -148,14 +200,8 @@ def make_multistart_probe(probe_run, full_run,
     R = len(offs)
 
     def solve_all(q0b: torch.Tensor, batched: KinematicData):
-        q0r = []
-        for o in offs:
-            q = q0b.clone()
-            q[:, :, 5] += o
-            q0r.append(q)
-        rep = map_data(lambda x: x.repeat((R,) + (1,) * (x.ndim - 1)),
-                       batched)
-        sel = _pick_restart(probe_run(torch.cat(q0r), rep), margin, R)
+        sel = _pick_restart(probe_run(_perturbed(q0b, offs),
+                                      _repeat(batched, R)), margin, R)
         return full_run(sel.q, batched)
 
     return solve_all

@@ -38,20 +38,17 @@ from ..priors import dataset as prior_ds
 from ..priors import gmm as gmm_mod
 from ..solver import kinematic as kin
 from ..solver import kinetic as kn
+from ..utils import data_ops
 from ..utils.device import DeviceLike, resolve_device
 from . import bench_lib
 from . import depth_anchor as danchor
 from . import estimator as est_mod
 from . import initialization as init_mod
-from .estimator import DD_BASE_ANCHOR, prior_gate_accept
+from .estimator import DD_BASE_ANCHOR, _np, prior_gate_accept
 
 SOLVE_STAGES: Tuple[Tuple[float, int], ...] = ((10.0, 30), (3.0, 30),
                                                (1.0, 150))
 SCAN_STAGES: Tuple[Tuple[float, int], ...] = ((1.0, 60),)
-
-
-def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().double().cpu().numpy()
 
 
 def _anchors(mm: armodel.MotionModel, qs: np.ndarray, fv: np.ndarray):
@@ -302,10 +299,11 @@ def _n_frames(datas) -> int:
 def _train_gmm(dataset: str, device: torch.device) -> kin.GMMPrior:
     """The data-driven pose prior from the training table at ``dataset``:
     the 5-component GMM over the 22 relative joint angles (seed 42), as a
-    solver prior (numpy leaves, no trial axis)."""
+    solver prior (numpy leaves, no trial axis), cached beside the table."""
     tab = prior_ds.load_pose_dataset(dataset)
     return gmm_mod.to_solver_prior(gmm_mod.fit(
-        tab.data[:, 6:28], n_components=5, seed=42, device=device))
+        tab.data[:, 6:28], n_components=5, seed=42, device=device,
+        cache_dir=data_ops.prior_cache_dir(dataset)))
 
 
 def _trial_objective(fte: kin.KinematicFTE, est, dtype, dev) -> float:
@@ -435,8 +433,9 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
             gp = _train_gmm(dset, dev)
             # the lasso AR model, window 4, validated on the
             # validation_dataset.csv beside the training table
-            mm = armodel.train_motion_model(dset, window_size=4, lasso=True,
-                                            device=dev)
+            mm = armodel.train_motion_model(
+                dset, window_size=4, lasso=True, device=dev,
+                cache_dir=data_ops.prior_cache_dir(dset))
         for subject_name, ests in groups.items():
             subject = params_mod.get_subject(subject_name)
             datas = [e.data for e in ests]

@@ -4,10 +4,12 @@ Port of the numpy part of ``cheetah_pose_estimation_tpu/pipeline/contacts.py``
 (``contacts.py:25-181``): a stance-time linear model from Hudson's cheetah
 data, a foot-height threshold plus vertical-velocity zero-crossing test,
 argmin-window stance placement, leading/trailing limb assignment, and the
-``grf/autogen-contact.json`` files. Foot kinematics are a forward-mode
-derivative of the feet's positions in float64 on the host. The
-force-profile synthesis (``synth_grf_data``, ``get_grf_profile``) writes and
-reads force-plate ``.h5`` files and is not ported yet.
+``grf/autogen-contact.json`` files, and the force profiles: half-sine Fz
+and a quadratic-spline Fx per detected stance (``synth_grf_data``), and the
+per-frame profiles the physics-based mode fixes (``get_grf_profile``).
+Foot kinematics are a forward-mode derivative of the feet's positions in
+float64 on the host. The force-plate tables are the CSV form
+(``grf_io``).
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..dynamics.eom import FOOT_NAMES, foot_points
+from ..dynamics.eom import FOOT_NAMES, POLYGON_D, foot_points
 from ..models.params import SubjectParams
+from . import grf_io
 
 
 class SimpleLinearModel:
@@ -35,6 +38,11 @@ class SimpleLinearModel:
 
 
 STANCE_TIME_MODEL = SimpleLinearModel([[9.0, 0.09], [14.0, 0.06]])
+# peak vertical force (body weights) against speed, per limb role
+MODEL_LFL = SimpleLinearModel([[9.0, 2.0], [15.0, 1.8]])     # leading fore
+MODEL_LHL = SimpleLinearModel([[9.0, 2.1], [15.0, 2.6]])     # leading hind
+MODEL_NLFL = SimpleLinearModel([[9.5, 2.1], [15.0, 2.0]])    # trailing fore
+MODEL_NLHL = SimpleLinearModel([[9.0, 1.7], [15.0, 2.5]])    # trailing hind
 
 HEIGHT_THRESHOLD = 0.05
 
@@ -165,3 +173,114 @@ def contact_detection(q: np.ndarray, dq: np.ndarray, subject: SubjectParams,
                            "end_frame": int(start_frame + N),
                            "contacts": c}, f)
     return contacts, contacts_tmp
+
+
+def synth_grf_data(speed: float, direction: float, data_dir: str,
+                   contact_fname: str = "autogen-contact.json",
+                   out_fname: str = "data_synth") -> None:
+    """Synthesize per-limb force profiles over the first detected stance
+    of each foot in ``data_dir/contact_fname`` and write them to
+    ``data_dir/<out_fname>.csv``: a half-sine Fz whose peak follows the
+    speed and the limb's role, and an Fx that is a quadratic spline through
+    a deceleration lobe (``direction`` x half the peak) and an acceleration
+    lobe, zero at touch-down, mid-stance and lift-off."""
+    from scipy import interpolate
+
+    with open(os.path.join(data_dir, contact_fname), "r",
+              encoding="utf-8") as f:
+        cj = json.load(f)
+    start_frame, end_frame = cj["start_frame"], cj["end_frame"]
+    order = cj["contacts"]
+    models = {("F", "leading"): MODEL_LFL, ("F", "trailing"): MODEL_NLFL,
+              ("B", "leading"): MODEL_LHL, ("B", "trailing"): MODEL_NLHL}
+    frames = {}
+    for name in FOOT_NAMES:
+        if (name not in order or order[name] is None
+                or order[name][0][1] >= end_frame):
+            continue
+        start_idx = max(order[name][0][0] - 1, start_frame)
+        end_idx = min(order[name][0][1] + 1, end_frame)
+        stance_end = end_idx - start_idx
+        if stance_end <= 0:
+            continue
+        model = models.get((name[1], order[name][0][3]))
+        if model is None:
+            continue
+        peak_idx = stance_end // 2
+        t = np.linspace(0, stance_end, stance_end)
+        Fz_peak = model.predict(speed)
+        Fx_dec = direction * 0.5 * Fz_peak
+        Fx_acc = 0.5 * -Fx_dec
+        ctrl = np.array([[0.0, 0.0], [peak_idx // 2, Fx_dec],
+                         [peak_idx, 0.0],
+                         [peak_idx + (stance_end - peak_idx) // 2, Fx_acc],
+                         [stance_end, 0.0]])
+        spline = interpolate.InterpolatedUnivariateSpline(
+            ctrl[:, 0], ctrl[:, 1], k=2)
+        Fxyz = np.zeros((end_frame - start_frame, 3))
+        sl = slice(start_idx - start_frame, end_idx - start_frame)
+        Fxyz[sl, 0] = spline(t)
+        Fxyz[sl, 2] = Fz_peak * np.sin(np.pi * (t / stance_end))
+        frames[order[name][0][2] - 1] = Fxyz
+    grf_io.save_force_plate_df(os.path.join(data_dir, f"{out_fname}.csv"),
+                               frames)
+
+
+def get_grf_profile(params_total_length: int, data_dir: str,
+                    metadata_dir: str, direction: float,
+                    scale_forces_by: float, kinetic_dataset: bool = False,
+                    synthetic_data: bool = True) -> Tuple[Dict, Dict]:
+    """Per-frame (GRFz, GRFxy-polygon) profiles of each foot in body-weight
+    units, from the force-plate table of ``data_dir/grf``: the synthesized
+    one (``data_synth.csv``, frames as written) or the measured one
+    (``data.csv`` of a force-plate trial: 3500 Hz resampled to 200 Hz by a
+    2/35 polyphase filter, the mean of the first 500 samples removed,
+    scaled by ``scale_forces_by``, Fx and Fy signed by ``direction``). A
+    foot's force counts on the frames of its first stance; its horizontal
+    part goes to the friction-polygon direction it projects on most, when
+    that projection is positive."""
+    from scipy import signal
+
+    grf = grf_io.load_force_plate_df(os.path.join(
+        data_dir, "grf", "data_synth.csv" if synthetic_data else "data.csv"))
+    meta_path = (os.path.join(data_dir, "grf", "autogen-contact.json")
+                 if synthetic_data
+                 else os.path.join(metadata_dir, "metadata.json"))
+    with open(meta_path, "r", encoding="utf-8") as f:
+        cj = json.load(f)
+    start_frame = cj["start_frame"]
+    order = cj["contacts"]
+    nfe = params_total_length
+    measured = not synthetic_data and kinetic_dataset
+    gz = {n: [0.0] * nfe for n in FOOT_NAMES}
+    gxy = {n: [[0.0] * 4 for _ in range(nfe)] for n in FOOT_NAMES}
+    for name in FOOT_NAMES:
+        if name not in order or order[name] is None:
+            continue
+        plate = order[name][0][2] - 1
+        if plate not in grf:
+            continue
+        F = grf[plate]
+        if measured:
+            def prep(col, sgn=1.0):
+                x = col - col[:500].mean()
+                return sgn * signal.resample_poly(x, up=2, down=35) \
+                    * scale_forces_by
+            Fz = prep(F[:, 2])
+            Fx = prep(F[:, 0], direction)
+            Fy = prep(F[:, 1], direction)
+        else:
+            Fx, Fy, Fz = F[:, 0], F[:, 1], F[:, 2]
+        on_ground = set(range(order[name][0][0], order[name][0][1] + 1))
+        for fe in range(1, nfe):
+            if (start_frame + fe - 1) not in on_ground:
+                continue
+            k = start_frame + fe - 1 if measured else fe - 1
+            if k >= len(Fz):
+                continue
+            gz[name][fe - 1] = float(Fz[k])
+            comps = POLYGON_D @ np.array([Fx[k], Fy[k], 0.0])
+            mi = int(np.argmax(comps))
+            if comps[mi] > 0:
+                gxy[name][fe - 1][mi] = float(comps[mi])
+    return gz, gxy

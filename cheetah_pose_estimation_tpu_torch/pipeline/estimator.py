@@ -1,15 +1,18 @@
 """Trial directories in, AcinoSet artifacts out.
 
-Port of the parts of ``cheetah_pose_estimation_tpu/pipeline/estimator.py``
-that the batched dataset CLI runs: the per-trial configuration and
-estimator (``TrajectoryParams``, ``Scene``, ``CheetahEstimator`` with
-``save`` and ``load``), ``init_trajectory`` (read a trial directory: DLC
-tables, scene calibration, metadata), the data-driven mode's settings and
-prior gate, the training-table lookup, and the physics mode's warm start
-and contact files. The serial per-trial entry points
-(``estimate_kinematics``, ``estimate_kinetics``) and the pairwise
-pseudo-measurements (``enable_ppm``) are not ported yet. Host work is numpy
-and float64 torch on the CPU.
+Port of ``cheetah_pose_estimation_tpu/pipeline/estimator.py`` for the
+dataset CLI: the per-trial configuration and estimator
+(``TrajectoryParams``, ``Scene``, ``CheetahEstimator`` with ``save`` and
+``load``), ``init_trajectory`` (read a trial directory: DLC tables, scene
+calibration, metadata), the data-driven mode's settings and prior gate, the
+training-table lookup, the physics mode's warm start, contact files and
+synthesized force profiles, and the serial per-trial solves
+(``estimate_kinematics``, ``estimate_kinetics``), each trial solved alone
+at its own length on the device of the run (the card by default). Not
+ported: the pairwise pseudo-measurements (``enable_ppm``), the joint
+shutter-delay solve and the rolling AR refinement (ROADMAP Queue 1 #12, #8,
+#11), the static and re-estimated GRFs. Host work is numpy and float64
+torch on the CPU.
 
 Directory layout consumed (the reference's):
 
@@ -25,18 +28,27 @@ Outputs land in ``fte_kinematic`` (multi-view), ``fte_kinematic_orig_<cam>``
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .. import convert
 from ..data import io as dio
 from ..models import noise as noise_tables
 from ..models import params as params_mod
 from ..models import skeleton as sk
 from ..ops import camera as cam_ops
+from ..parallel import batch as pbatch
+from ..priors import armodel
+from ..priors import dataset as prior_ds
+from ..priors import gmm as gmm_mod
 from ..solver import kinematic as kin
+from ..utils import data_ops
+from ..utils.device import DeviceLike, resolve_device
 
 # base-pose anchor of the prior-constrained solves (solver.kinematic
 # base_ref / base_anchor_*): a stiff translation pin (sigma ~2.5 cm) and a
@@ -65,17 +77,20 @@ def _default_data_driven_dataset() -> str:
     return cands[1]
 
 
-def prior_gate_accept(c_chain, c_free):
+def prior_gate_accept(c_chain, c_free, guard_ratio: Optional[float] = None):
     """Per-trial prior gate: the GMM chain is accepted when its prior-free
     cost does not exceed the prior-free solve's by more than
-    (PRIOR_GUARD_RATIO - 1) x max(|cost|, 1).
+    (guard_ratio - 1) x max(|cost|, 1), ``guard_ratio`` defaulting to
+    ``PRIOR_GUARD_RATIO``.
 
     Not a plain ratio test: the smoothed redescending loss is slightly
     negative at well-fit residuals, so totals can be negative and
     ``c_chain <= r * c_free`` would invert there. Elementwise on arrays."""
+    if guard_ratio is None:
+        guard_ratio = PRIOR_GUARD_RATIO
     c_chain = np.asarray(c_chain, np.float64)
     c_free = np.asarray(c_free, np.float64)
-    margin = (PRIOR_GUARD_RATIO - 1.0) * np.maximum(np.abs(c_free), 1.0)
+    margin = (guard_ratio - 1.0) * np.maximum(np.abs(c_free), 1.0)
     return c_chain <= c_free + margin
 
 
@@ -137,6 +152,11 @@ class CheetahEstimator:
     grf_z: Optional[np.ndarray] = None    # (N, 4)
     grf_xy: Optional[np.ndarray] = None   # (N, 4, 4)
     shutter_delay: Optional[np.ndarray] = None  # (C,) seconds
+
+    @property
+    def scale_forces_by(self) -> float:
+        """Body weight in newtons: the GRF profiles' unit."""
+        return self.subject.total_mass * 9.81
 
     def _base(self, out_dir_prefix: Optional[str]) -> str:
         return (os.path.join(out_dir_prefix, self.data_path)
@@ -364,24 +384,371 @@ def _load_warm_start(est: CheetahEstimator, monocular: bool,
     return dio.load_fte_pickle(path)
 
 
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().double().cpu().numpy()
+
+
+def estimate_kinematics(est: CheetahEstimator,
+                        monocular_constraints: bool = False,
+                        disable_pose_prior: bool = False,
+                        disable_motion_prior: bool = False,
+                        pose_model_num_components: int = 5,
+                        motion_model_window_size: int = 4,
+                        motion_model_sparse_solution: bool = True,
+                        motion_prior_rolling: int = 0,
+                        data_driven_dataset: Optional[str] = None,
+                        prior_guard_ratio: Optional[float] = None,
+                        ground_anchor: bool = True,
+                        depth_scan: bool = True,
+                        out_dir_prefix: Optional[str] = None,
+                        solver_output: bool = False,
+                        save: bool = True,
+                        dtype: torch.dtype = torch.float32,
+                        device: DeviceLike = None,
+                        report: Optional[dict] = None) -> bool:
+    """Kinematic reconstruction of one trial, solved alone at its own
+    length on ``device`` (the card by default) in ``dtype``.
+
+    From the initial trajectory (multi-view, or the monocular camera's):
+
+    * with ``monocular_constraints`` on a monocular trial (the data-driven
+      mode), the bootstrap: the prior-free heading multistart; the GMM
+      chain (pose prior, base pinned to the prior-free solve by
+      ``DD_BASE_ANCHOR``) and its prior gate (``prior_gate_accept`` with
+      ``prior_guard_ratio``; a rejected trial keeps the prior-free solve
+      and solves without the pose prior); the AR anchors with adaptive
+      weights from the bootstrap; the priors trained on
+      ``data_driven_dataset`` and cached beside it;
+    * the solve: a cold monocular solve is the heading multistart, else one
+      annealed solve from the (bootstrapped) start;
+    * on a monocular trial with ``ground_anchor``, the ground-plane ray
+      shift and a short polish with the ground, penetration and no-slip
+      terms, kept when the plain objective gets no more than 5 % worse
+      (no shift: no polish);
+    * in the data-driven mode with ``depth_scan`` and an accepted prior, the
+      depth line-scan, and at a nonzero shift the re-polish by the full
+      solver from the shifted trajectory, its base pin and AR anchors
+      moved with it.
+
+    ``obj_cost`` is the objective of the saved q under the data of the solve
+    that produced it (after a re-polish, the shifted base pin and anchors;
+    the JAX package evaluates it under the data before the shift). With
+    ``save``, a finite solution is written to ``fte_kinematic``,
+    ``fte_kinematic_orig_<cam>`` (default) or ``fte_kinematic_<cam>``
+    (data-driven). With ``report``, the decisions taken go into it:
+    ``prior_ok``, ``scan_shift``, ``polish_ray_shift``,
+    ``polish_stance_frames``, ``polish_changed``. Returns whether the
+    solution is finite.
+
+    Raises ``NotImplementedError`` for the joint shutter-delay solve
+    (``enable_shutter_delay_estimation`` on a multi-view trial) and for
+    ``motion_prior_rolling > 0``."""
+    from . import depth_anchor as danchor
+    from . import initialization as init_mod
+
+    p, scene = est.params, est.scene
+    if p.enable_shutter_delay_estimation and scene.cam_idx is None:
+        raise NotImplementedError(
+            "the joint shutter-delay solve is not ported (ROADMAP Queue 1 "
+            "#8)")
+    if motion_prior_rolling > 0:
+        raise NotImplementedError(
+            "the rolling AR refinement (motion_prior_rolling) is not ported "
+            "(ROADMAP Queue 1 #11)")
+    dev = resolve_device(device)
+    rep = {} if report is None else report
+    tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    t0 = time.time()
+    full_weight = np.einsum(
+        "wl,ncl->nclw",
+        noise_tables.measurement_weights(1, p.kinetic_dataset),
+        (est.likelihood > p.dlc_thresh).astype(float))
+    est.q0 = init_mod.initialize_trajectory(
+        est.xy[..., None], full_weight, scene.k_arr, scene.d_arr, scene.r_arr,
+        scene.t_arr, est.subject, fisheye=not p.kinetic_dataset,
+        cam_idx=scene.cam_idx, kinetic_dataset=p.kinetic_dataset)
+    # the trial as a batch of one, at its own length
+    data, q0 = pbatch.pad_and_stack([est.data], [est.q0], dtype=dtype,
+                                    device=dev)
+
+    use_priors = monocular_constraints and scene.cam_idx is not None
+    use_gmm = use_priors and not disable_pose_prior
+    use_ar = use_priors and not disable_motion_prior
+    boot_ran = use_gmm or use_ar
+    prior_ok = True
+    base_cfg = kin.KinematicConfig(
+        fisheye=not p.kinetic_dataset, robust=not p.hand_labeled_data,
+        kinetic_dataset=p.kinetic_dataset,
+        cam_multipliers=(1.0, 1.0, 0.6, 0.6) if p.kinetic_dataset else ())
+    if boot_ran:
+        dset = data_driven_dataset or _default_data_driven_dataset()
+        cache = data_ops.prior_cache_dir(dset)
+        if use_gmm:
+            tab = prior_ds.load_pose_dataset(dset)
+            gp = gmm_mod.to_solver_prior(gmm_mod.fit(
+                tab.data[:, 6:28], n_components=pose_model_num_components,
+                seed=42, device=dev, cache_dir=cache))
+            data = data._replace(gmm=convert.gmm_prior(gp, 1, device=dev,
+                                                       dtype=dtype))
+        # the bootstrap: the prior-free heading multistart, then the GMM
+        # chain and its gate
+        boot = kin.KinematicFTE(base_cfg, est.subject)
+        st_free = pbatch.multistart_single(boot.make_solver(), q0[0], data)
+        q_boot = st_free.q
+        if use_gmm:
+            data = data._replace(base_ref=st_free.q[:, :, :6])
+            chain = kin.KinematicFTE(dataclasses.replace(
+                base_cfg, use_gmm=True, **DD_BASE_ANCHOR), est.subject)
+            st_chain = chain.make_solver()(st_free.q, data)
+            c_free = float(boot._cost(st_free.q, data, 1.0)[0])
+            c_chain = float(boot._cost(st_chain.q, data, 1.0)[0])
+            if bool(prior_gate_accept(c_chain, c_free, prior_guard_ratio)):
+                q_boot = st_chain.q
+            else:
+                prior_ok = False
+            rep["prior_ok"] = prior_ok
+        if use_ar:
+            # AR anchors on the bootstrap, per-dimension weights shrunk by
+            # the observed prediction error
+            mm = armodel.train_motion_model(
+                dset, window_size=motion_model_window_size,
+                lasso=motion_model_sparse_solution, device=dev,
+                cache_dir=cache)
+            x_boot = sk.relative_pose(torch.as_tensor(_np(q_boot[0]))).numpy()
+            y_pred, valid = armodel.anchor_predictions(mm, x_boot)
+            w_ad = armodel.adaptive_motion_weights(mm, y_pred, x_boot, valid)
+            data = data._replace(ar=kin.ARAnchor(
+                tens(y_pred)[None], tens(w_ad)[None], tens(valid)[None]))
+        q0 = q_boot
+    use_gmm = use_gmm and prior_ok
+
+    cfg = dataclasses.replace(
+        base_cfg, use_gmm=use_gmm, use_ar=use_ar,
+        **(DD_BASE_ANCHOR if (use_gmm or use_ar) else {}))
+    fte = kin.KinematicFTE(cfg, est.subject)
+    run = fte.make_solver()
+    if scene.cam_idx is not None and not boot_ran:
+        # a cold monocular solve escapes bad heading basins by the
+        # multistart; the prior modes start from the multistarted bootstrap
+        state = pbatch.multistart_single(run, q0[0], data)
+    else:
+        state = run(q0, data)
+    est.q = _np(state.q[0])
+    monocular = scene.cam_idx is not None and not p.kinetic_dataset
+    if ground_anchor and monocular:
+        ci = scene.cam_idx
+        qc, stw, shift = danchor.ray_depth_correction(
+            est.q, est.subject, scene.fps, p.ground_plane_height,
+            scene.r_arr[ci], scene.t_arr[ci])
+        changed = False
+        # no shift: no depth evidence, and no polish (its stance pull acts
+        # on hovering stance frames too)
+        if stw.sum() > 0 and float(np.max(np.abs(shift))) != 0.0:
+            afte = kin.KinematicFTE(dataclasses.replace(
+                cfg, use_gmm=False, use_ar=False, **danchor.POLISH_CFG),
+                est.subject)
+            ast = afte.make_solver(stages=danchor.POLISH_STAGES)(
+                tens(qc)[None], data._replace(
+                    ground_z=tens([p.ground_plane_height]),
+                    stance_w=tens(stw)[None]))
+            # the shift is reprojection-neutral: a polish that worsens the
+            # plain objective by more than 5 % diverged against bad stance
+            # evidence
+            gfte = kin.KinematicFTE(dataclasses.replace(
+                cfg, use_gmm=False, use_ar=False), est.subject)
+            c0 = float(gfte.objective(state.q, data)[0])
+            c1 = float(gfte.objective(ast.q, data)[0])
+            if np.isfinite(c1) and c1 <= 1.05 * c0:
+                est.q = _np(ast.q[0])
+                state = state._replace(q=ast.q)
+                changed = True
+        rep.update(polish_ray_shift=float(shift[0]),
+                   polish_stance_frames=int(stw.sum()),
+                   polish_changed=changed)
+    if depth_scan and use_priors and prior_ok and monocular:
+        ci = scene.cam_idx
+        rays = danchor.camera_ray(est.q, scene.r_arr[ci],
+                                  scene.t_arr[ci])[None]
+        veto = np.asarray([danchor.scale_median(
+            est.q, est.subject, _np(data.meas[0, :, 0]),
+            _np(data.weight[0, :, 0]), scene.k_arr[ci], scene.d_arr[ci],
+            scene.r_arr[ci], scene.t_arr[ci].reshape(3))])
+        scan = danchor.make_depth_linescan(est.subject)
+        _, shifts = scan(tens(est.q)[None], data, rays, veto)
+        rep["scan_shift"] = float(shifts[0])
+        if float(shifts[0]) != 0.0:
+            # the scan judges depth only: move the solved trajectory by the
+            # accepted shift and re-polish with the full solver, its base
+            # pin and AR anchors moved with it
+            q_shift = est.q.copy()
+            q_shift[:, :3] += float(shifts[0]) * rays[0]
+            data = data._replace(base_ref=tens(q_shift[:, :6])[None])
+            if use_ar:
+                yp2, vl2 = armodel.anchor_predictions(
+                    mm, sk.relative_pose(torch.as_tensor(q_shift)).numpy())
+                data = data._replace(ar=data.ar._replace(
+                    y_pred=tens(yp2)[None], valid=tens(vl2)[None]))
+            st2 = run(tens(q_shift)[None], data)
+            est.q = _np(st2.q[0])
+            state = state._replace(q=st2.q)
+            if solver_output:
+                print(f"depth line-scan shift: {float(shifts[0]):+.2f} m")
+    est.opt_time_s = time.time() - t0
+    est.obj_cost = float(fte.objective(state.q, data)[0])
+    ok = bool(np.isfinite(est.obj_cost)) and bool(np.all(np.isfinite(est.q)))
+    if solver_output:
+        print(f"solved in {est.opt_time_s:.1f}s, it={int(state.it[0])}, "
+              f"cost={float(state.cost[0]):.2f}")
+    if ok and save:
+        fname = "fte_kinematic" + ("_gt" if p.hand_labeled_data else "")
+        if scene.cam_idx is not None:
+            fname = (f"fte_kinematic_{scene.cam_idx}" if monocular_constraints
+                     else f"fte_kinematic_orig_{scene.cam_idx}")
+        est.save(fname, out_dir_prefix=out_dir_prefix)
+    return ok
+
+
 def determine_contacts(est: CheetahEstimator, monocular: bool = False,
                        out_dir_prefix: Optional[str] = None,
                        verbose: bool = False):
     """Contact detection on the saved kinematic solution, written to
-    ``grf/autogen-contact.json`` and ``grf/autogen-contact-02.json``.
-    The JAX function also synthesizes force profiles into ``data_synth.h5``
-    (``contacts.synth_grf_data``); the batched physics mode never reads
-    them, and that step is not ported yet."""
+    ``grf/autogen-contact.json`` and ``grf/autogen-contact-02.json``, and
+    the force profiles synthesized over each file's stances
+    (``contacts.synth_grf_data``: ``grf/data_synth.csv`` and
+    ``grf/data_synth_02.csv``, which ``estimate_kinetics(synthesised_grf=
+    True)`` reads back)."""
     from . import contacts as contacts_mod
 
     d = _load_warm_start(est, monocular, out_dir_prefix)
     est.com_vel = d["com_vel"]
     est.com_pos = d["com_pos"]
     speed = float(np.mean(np.linalg.norm(d["com_vel"], axis=1)))
+    avg_vel = np.mean(d["com_vel"], axis=0)
+    base = est._base(out_dir_prefix)
     contacts, contacts_tmp = contacts_mod.contact_detection(
         d["q"], d["dq"], est.subject, est.params.start_frame, speed,
-        est.scene.fps, data_dir=est._base(out_dir_prefix),
+        est.scene.fps, data_dir=base,
         ground_plane_height=est.params.ground_plane_height)
+    direction = 1.0 if avg_vel[0] < 0 else -1.0
+    grf_dir = os.path.join(base, "grf")
+    contacts_mod.synth_grf_data(speed, direction, grf_dir)
+    contacts_mod.synth_grf_data(speed, direction, grf_dir,
+                                "autogen-contact-02.json", "data_synth_02")
     if verbose:
         print(contacts)
     return contacts, contacts_tmp
+
+
+def reset_trajectory(est: CheetahEstimator, extend_by: int = 0):
+    """Re-window the trial, optionally extending its frame range by
+    ``extend_by`` frames, and rebuild the problem from the DLC tables."""
+    if extend_by:
+        est.params.end_frame += extend_by
+        est.params.total_length = est.params.end_frame \
+            - est.params.start_frame
+    _load_measurements(est)
+    return est
+
+
+def estimate_kinetics(est: CheetahEstimator,
+                      synthesised_grf: bool = False,
+                      disable_pose_prior: bool = False,
+                      disable_motion_prior: bool = False,
+                      use_2d_reprojections: bool = True,
+                      enable_lcp: bool = False,
+                      out_fname: str = "fte",
+                      out_dir_prefix: Optional[str] = None,
+                      solver_output: bool = False,
+                      save: bool = True,
+                      dtype: torch.dtype = torch.float32,
+                      device: DeviceLike = None,
+                      report: Optional[dict] = None) -> bool:
+    """Physics-based reconstruction of one trial, alone at its own length
+    on ``device`` (the card by default) in ``dtype``: warm-started from the
+    saved kinematic solution (``_load_warm_start``), the stances read from
+    ``grf/autogen-contact.json`` and pruned on the warm start; joint torques
+    and GRFs are eliminated per frame inside the solver. With
+    ``synthesised_grf`` the GRFs are fixed to the profiles of
+    ``grf/data_synth.csv`` (``contacts.get_grf_profile``) instead of solved
+    for. The monocular solve carries the GMM pose prior (trained on the
+    default training table, cached beside it) unless
+    ``disable_pose_prior``; ``disable_motion_prior`` drops the torque and
+    marker-smoothing energy (a tiny torque ridge keeps the elimination
+    nonsingular). ``enable_lcp`` and ``use_2d_reprojections=False`` raise
+    ``NotImplementedError`` (ROADMAP Queue 1 #10).
+
+    The solved q, objective, torques and GRFs go into ``est``; with
+    ``save`` a finite solution is written to ``fte_kinetic``
+    (``fte_kinetic_<cam>`` for a monocular trial). With ``report``, the pruned stance matrix goes
+    into it. Returns whether q is finite."""
+    from ..dynamics.eom import FOOT_NAMES
+    from ..solver import kinetic as kn
+    from . import contacts as contacts_mod
+
+    p = est.params
+    monocular = est.scene.cam_idx is not None
+    use_gmm = (not disable_pose_prior) and monocular
+    fte = kn.KineticFTE(kn.KineticConfig(
+        fisheye=not p.kinetic_dataset, robust=not p.hand_labeled_data,
+        use_gmm=use_gmm, kinetic_dataset=p.kinetic_dataset,
+        use_2d_reprojections=use_2d_reprojections, enable_lcp=enable_lcp,
+        torque_weight=1e-6 if disable_motion_prior else 1.0,
+        smooth_weight_scale=0.0 if disable_motion_prior else 0.1,
+        foot_height_bound=0.03 if p.kinetic_dataset else 0.1,
+        cam_multipliers=(1.0, 1.0, 0.6, 0.6) if p.kinetic_dataset else ()),
+        est.subject)
+    dev = resolve_device(device)
+    t0 = time.time()
+    d = _load_warm_start(est, monocular, out_dir_prefix)
+    q_warm = np.asarray(d["q"], np.float64)
+    est.com_vel = d["com_vel"]
+    est.com_pos = d["com_pos"]
+    base = est._base(out_dir_prefix)
+    with open(os.path.join(base, "grf", "autogen-contact.json"),
+              encoding="utf-8") as f:
+        cj = json.load(f)
+    N = p.end_frame - p.start_frame
+    stance = kn.stance_matrix(cj["contacts"], cj["start_frame"], N)
+    stance = kn.prune_stance(stance, q_warm, est.subject,
+                             1.0 / est.scene.fps)
+    if report is not None:
+        report["stance"] = stance.astype(int).tolist()
+    if synthesised_grf:
+        gz, gxy = contacts_mod.get_grf_profile(
+            N, base, p.data_dir, 1.0, 1.0 / est.scale_forces_by,
+            kinetic_dataset=p.kinetic_dataset, synthetic_data=True)
+        grf_fixed = np.stack([gz[n] for n in FOOT_NAMES], axis=1)
+        grf_xy_fixed = np.stack([gxy[n] for n in FOOT_NAMES], axis=1)
+    else:
+        grf_fixed, grf_xy_fixed = np.zeros((N, 4)), np.zeros((N, 4, 4))
+    data = est.data
+    if use_gmm:
+        dset = _default_data_driven_dataset()
+        tab = prior_ds.load_pose_dataset(dset)
+        data = data._replace(gmm=gmm_mod.to_solver_prior(gmm_mod.fit(
+            tab.data[:, 6:28], n_components=5, seed=42, device=dev,
+            cache_dir=data_ops.prior_cache_dir(dset))))
+    kd = kn.KineticData(
+        base=data, stance=stance, grf_fixed=grf_fixed,
+        grf_xy_fixed=grf_xy_fixed,
+        use_fixed_grf=np.asarray(float(synthesised_grf)), q_warm=q_warm,
+        ground_z=np.asarray(p.ground_plane_height))
+    kbat, qw = pbatch.pad_and_stack_kinetic([kd], [q_warm], dtype=dtype,
+                                            device=dev)
+    state = fte.make_solver()(qw, kbat)
+    est.q = _np(state.q[0])
+    est.opt_time_s = time.time() - t0
+    est.obj_cost = float(fte.objective(state.q, kbat)[0])
+    tau, gz_sol, gxy_sol = fte.forces(state.q, kbat)
+    est.tau, est.grf_z, est.grf_xy = _np(tau[0]), _np(gz_sol[0]), \
+        _np(gxy_sol[0])
+    ok = bool(np.all(np.isfinite(est.q)))
+    if solver_output:
+        print(f"kinetics solved in {est.opt_time_s:.1f}s, "
+              f"it={int(state.it[0])}, cost={float(state.cost[0]):.2f}")
+    if ok and save:
+        dir_name = "fte_kinetic" + ("_gt" if p.hand_labeled_data else "")
+        if monocular:
+            dir_name = f"{dir_name}_{est.scene.cam_idx}"
+        est.save(dir_name, fname=out_fname, out_dir_prefix=out_dir_prefix)
+    return ok

@@ -1,13 +1,14 @@
-"""The dataset CLI: its batched monocular path.
+"""The dataset CLI: its monocular paths.
 
 Port of ``cheetah_pose_estimation_tpu/pipeline/run_dataset.py`` for
-``--materialize_synthetic`` and ``--run_monocular --batched --clean``::
+``--materialize_synthetic`` and ``--run_monocular --clean``, serial or
+``--batched``::
 
     python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
         --materialize_synthetic --root_dir R
     CHEETAH_DATA_DRIVEN_DATASET=P \
     python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
-        --run_monocular --batched --clean --root_dir R --out_dir_prefix O
+        --run_monocular [--batched] --clean --root_dir R --out_dir_prefix O
 
 The first renders the 10-trial synthetic test set (AcinoSet directory
 layout, 6 fisheye cameras, correlated DLC failures) into R; the second
@@ -15,8 +16,9 @@ solves its four modes (multi-view ground truth, default, data-driven,
 physics-based) on the card (``--device cpu`` for the CPU), writes each
 trial's artifacts under O and the per-mode metrics against the multi-view
 solve to ``O/dataset_results.csv``, in the layout pandas writes for the JAX
-package. The serial per-trial path (``--run_monocular`` without
-``--batched``) is not ported yet and raises; the study, kinetic-set and
+package. Without ``--batched`` each trial is solved alone, mode after mode
+(:func:`run_monocular`); with it, each mode's trials of one subject are one
+batch (``batched.run_monocular_batched``). The study, kinetic-set and
 analysis flags are not defined, and the post-process plots are not made.
 """
 from __future__ import annotations
@@ -24,14 +26,19 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..data import io as dio
 from ..data import synthetic as syn
 from ..models import params as params_mod
+from ..ops import cuda_banded
+from ..utils.device import DeviceLike, resolve_device
 from . import contacts as contacts_mod
+from . import estimator as est_mod
 from . import metrics as metrics_mod
 
 # the reference's 10-trial monocular AcinoSet test set
@@ -90,6 +97,125 @@ def materialize_synthetic_testset(root_dir: str, n_cams: int = 6,
             pickle.dump({"q": q_gt, "positions": tr.markers_gt}, f)
         made.append(data_path)
     return made
+
+
+# the physics-based mode's attempts, in order: the LM solve is
+# deterministic, so each fallback changes the problem: the GRFs solved for,
+# then fixed to the synthesized profiles, then also without the pose prior
+PHYSICS_ATTEMPTS = (dict(),
+                    dict(synthesised_grf=True),
+                    dict(synthesised_grf=True, disable_pose_prior=True))
+
+
+def run_monocular(root_dir: str, dir_prefix: str,
+                  test_set: Tuple = TEST_SET,
+                  cam_overrides: Optional[List[int]] = None,
+                  modes: Tuple[str, ...] = ("ground-truth", "default",
+                                            "data-driven", "physics-based"),
+                  data_driven_dataset: Optional[str] = None,
+                  verbose: bool = True,
+                  dtype: torch.dtype = torch.float32,
+                  device: DeviceLike = None,
+                  report: Optional[dict] = None) -> None:
+    """The serial per-trial path: each trial of ``test_set`` under
+    ``root_dir`` in turn through ``modes``, each solve alone at the trial's
+    own length on ``device`` (the card by default), artifacts under
+    ``dir_prefix``:
+
+    * ground-truth: ``estimate_kinematics`` on all cameras;
+    * default: ``estimate_kinematics`` on the monocular camera (metadata's,
+      or ``cam_overrides``);
+    * data-driven: the same with the learned priors trained on
+      ``data_driven_dataset``;
+    * physics-based: contact detection and GRF synthesis on the saved
+      kinematic solution, then ``estimate_kinetics`` in up to three
+      attempts (``PHYSICS_ATTEMPTS``), stopping at the first acceptable
+      one. An attempt that raises ``ValueError`` or ``FileNotFoundError``
+      is reported and the next one tried; any other error propagates.
+
+    With a ``report`` dict, per mode: the trials, and per trial the wall
+    seconds, the kernel's launches per (B, N) and the decisions the solve
+    reported (the physics mode's stance matrix, each attempt's outcome and
+    the 1-based index of the accepted attempt, None when none was)."""
+    dev = resolve_device(device)
+    rep = {} if report is None else report
+    t_start = time.time()
+
+    def timed(mode, path, fn):
+        """Run ``fn(trial_report)``, recording its wall and launches."""
+        before = dict(cuda_banded.launches_by_shape)
+        tr: dict = {}
+        t0 = time.time()
+        out = fn(tr)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        tr["wall_s"] = time.time() - t0
+        tr["launches"] = {k: v - before.get(k, 0) for k, v in
+                          cuda_banded.launches_by_shape.items()
+                          if v != before.get(k, 0)}
+        m = rep.setdefault(mode, {"trials": [], "per_trial": {}})
+        m["trials"].append(path)
+        m["per_trial"][path] = tr
+        return out
+
+    kw = dict(out_dir_prefix=dir_prefix, solver_output=verbose, dtype=dtype,
+              device=dev)
+    for idx, (cheetah, date, trial_name) in enumerate(test_set):
+        data_path = os.path.join(date, cheetah, trial_name)
+        if not os.path.isdir(os.path.join(root_dir, data_path)):
+            print(f"skip missing {data_path}")
+            continue
+        cam = cam_overrides[idx] if cam_overrides is not None else None
+        if verbose:
+            print(f"== {data_path} (cam={cam}) ==")
+        trial = lambda **k: est_mod.init_trajectory(
+            root_dir, data_path, cheetah, override_monocular_cam=cam, **k)
+        if "ground-truth" in modes:
+            timed("ground-truth", data_path,
+                  lambda tr: est_mod.estimate_kinematics(
+                      trial(kinematic_model=True), report=tr, **kw))
+        if "default" in modes:
+            timed("default", data_path,
+                  lambda tr: est_mod.estimate_kinematics(
+                      trial(monocular_enable=True, kinematic_model=True),
+                      report=tr, **kw))
+        if "data-driven" in modes:
+            timed("data-driven", data_path,
+                  lambda tr: est_mod.estimate_kinematics(
+                      trial(monocular_enable=True, kinematic_model=True),
+                      monocular_constraints=True,
+                      data_driven_dataset=data_driven_dataset, report=tr,
+                      **kw))
+        if "physics-based" in modes:
+            timed("physics-based", data_path,
+                  lambda tr: _physics_attempts(trial, data_path, tr, kw))
+    print(f"Run through all videos took {time.time() - t_start:.2f}s")
+
+
+def _physics_attempts(trial, data_path: str, tr: dict, kw: dict) -> bool:
+    """The physics-based mode of one trial: ``PHYSICS_ATTEMPTS`` in order
+    until one is acceptable; each attempt's outcome into ``tr``."""
+    tr["attempts"], tr["attempt"] = [], None
+    for attempt, akw in enumerate(PHYSICS_ATTEMPTS):
+        est = trial(monocular_enable=True, kinematic_model=False)
+        est_mod.determine_contacts(est, monocular=True,
+                                   out_dir_prefix=kw["out_dir_prefix"])
+        try:
+            ok = est_mod.estimate_kinetics(est, report=tr, **akw, **kw)
+        except (ValueError, FileNotFoundError) as e:
+            print(f"physics-based attempt {attempt + 1} failed: "
+                  f"{type(e).__name__}: {e}")
+            tr["attempts"].append(f"{type(e).__name__}: {e}")
+            continue
+        tr["attempts"].append("ok" if ok else "not acceptable")
+        if ok:
+            tr["attempt"] = attempt + 1
+            return True
+        print(f"physics-based attempt {attempt + 1} ({akw}) not "
+              "acceptable, trying fallback")
+    print(f"physics-based FAILED for {data_path} (no acceptable solution "
+          "in any configuration)")
+    return False
 
 
 MODE_DIRS = (("default", "fte_kinematic_orig_{cam}"),
@@ -170,8 +296,9 @@ def dataset_post_process(root_dir: str, dir_prefix: str,
 
 def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
     """The CLI. ``report`` (Python callers only) collects each mode's
-    decisions, walls and kernel launches (``batched.run_monocular_batched``)
-    and the results table; it is also returned."""
+    decisions, walls and kernel launches (:func:`run_monocular`, or
+    ``batched.run_monocular_batched`` with ``--batched``) and the results
+    table; it is also returned."""
     parser = argparse.ArgumentParser(
         description="cheetah reconstruction over a dataset of trials "
                     "(PyTorch port)")
@@ -205,19 +332,21 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
         print(f"materialized {len(made)} synthetic trials in {args.root_dir}")
     if args.run_monocular:
         if args.clean:
-            if not args.batched:
-                raise NotImplementedError(
-                    "the serial per-trial path (--run_monocular --clean "
-                    "without --batched) is not ported; pass --batched")
-            from . import batched
             rep = report if report is not None else {}
             rep.setdefault("modes", {})
-            batched.run_monocular_batched(
-                args.root_dir, args.out_dir_prefix, test_set, cam_overrides,
-                modes=("ground-truth", "default", "data-driven",
-                       "physics-based"),
-                ground_anchor=not args.no_ground_anchor,
-                device=args.device, report=rep["modes"])
+            if args.batched:
+                from . import batched
+                batched.run_monocular_batched(
+                    args.root_dir, args.out_dir_prefix, test_set,
+                    cam_overrides,
+                    modes=("ground-truth", "default", "data-driven",
+                           "physics-based"),
+                    ground_anchor=not args.no_ground_anchor,
+                    device=args.device, report=rep["modes"])
+            else:
+                run_monocular(args.root_dir, args.out_dir_prefix, test_set,
+                              cam_overrides, device=args.device,
+                              report=rep["modes"])
         res = dataset_post_process(args.root_dir, args.out_dir_prefix,
                                    test_set, cam_overrides)
         if report is not None:

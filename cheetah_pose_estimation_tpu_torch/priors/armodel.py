@@ -10,9 +10,11 @@ residual variance on the training set drives the in-solver motion weights.
 """
 from __future__ import annotations
 
+import hashlib
 import os
+import pickle
 from dataclasses import dataclass
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -122,12 +124,17 @@ def train_motion_model(dataset: Union[str, ds.PoseTable],
                        window_size: int = 4, lasso: bool = True,
                        alpha: float = 1e-2,
                        validation: Union[str, ds.PoseTable, None] = None,
-                       device: DeviceLike = None) -> MotionModel:
+                       device: DeviceLike = None,
+                       cache_dir: Optional[str] = None) -> MotionModel:
     """Train the AR motion model over the 28 pose columns of a pose table
     (consecutive frames, window ``window_size``): a CSV path (as the JAX
     function takes) or a :class:`~.dataset.PoseTable`. ``validation``
     defaults to ``validation_dataset.csv`` beside a training path. Raises on
-    non-finite coefficients."""
+    non-finite coefficients.
+
+    With ``cache_dir`` the coefficients are stored there as
+    ``lr_model_<md5>.torch.pkl``, keyed by the md5 of the training windows
+    and the settings, and loaded from there when it exists."""
     if validation is None:
         if not isinstance(dataset, str):
             raise ValueError("a validation table is needed when the training "
@@ -137,13 +144,29 @@ def train_motion_model(dataset: Union[str, ds.PoseTable],
     tab, tabv = _table(dataset), _table(validation)
     X, y = ds.windowed_dataset(tab.data, tab.index, window_size)
     Xv, yv = ds.windowed_dataset(tabv.data, tabv.index, window_size)
-    if lasso:
-        coef, intercept = fit_multitask_lasso(X, y, alpha, device=device)
+    cache_path = None
+    if cache_dir is not None:
+        m = hashlib.md5()
+        for a in (X, y):
+            m.update(np.ascontiguousarray(a, np.float64).tobytes())
+        m.update(repr((window_size, lasso, alpha)).encode())
+        cache_path = os.path.join(cache_dir,
+                                  f"lr_model_{m.hexdigest()}.torch.pkl")
+    if cache_path is not None and os.path.isfile(cache_path):
+        with open(cache_path, "rb") as f:
+            coef, intercept = pickle.load(f)
     else:
-        coef, intercept = fit_linear(X, y)
-    if not (np.isfinite(coef).all() and np.isfinite(intercept).all()):
-        raise RuntimeError("AR motion-model training produced non-finite "
-                           "coefficients; refusing to return a poisoned model")
+        if lasso:
+            coef, intercept = fit_multitask_lasso(X, y, alpha, device=device)
+        else:
+            coef, intercept = fit_linear(X, y)
+        if not (np.isfinite(coef).all() and np.isfinite(intercept).all()):
+            raise RuntimeError("AR motion-model training produced non-finite "
+                               "coefficients; refusing to return a poisoned "
+                               "model")
+        if cache_path is not None:
+            with open(cache_path, "wb") as f:
+                pickle.dump((coef, intercept), f)
     resid = y - (X @ coef.T + intercept[None])
     residv = yv - (Xv @ coef.T + intercept[None])
     return MotionModel(

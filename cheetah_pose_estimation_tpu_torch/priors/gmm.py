@@ -9,7 +9,10 @@ caller names (the card by default).
 """
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import pickle
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -61,12 +64,33 @@ def _log_gaussians(X: torch.Tensor, means: torch.Tensor, covs: torch.Tensor,
 
 def fit(X: np.ndarray, n_components: int, seed: int = 42,
         max_iter: int = 200, reg_covar: float = 1e-6,
-        device: DeviceLike = None) -> GMMParams:
+        device: DeviceLike = None,
+        cache_dir: Optional[str] = None) -> GMMParams:
     """Full-covariance EM on the rows of X, in float64 on ``device``.
-    Raises on a non-finite fit."""
+    Raises on a non-finite fit.
+
+    With ``cache_dir`` the fit is stored there as
+    ``gmm_model_<md5>.torch.pkl``, keyed by the md5 of the data's bytes and
+    the settings, and loaded from there when it exists."""
+    cache_path = None
+    if cache_dir is not None:
+        m = hashlib.md5()
+        m.update(np.ascontiguousarray(np.asarray(X, np.float64)).tobytes())
+        m.update(repr((n_components, seed, max_iter, reg_covar)).encode())
+        cache_path = os.path.join(cache_dir,
+                                  f"gmm_model_{m.hexdigest()}.torch.pkl")
+        if os.path.isfile(cache_path):
+            with open(cache_path, "rb") as f:
+                arrays = pickle.load(f)
+            dev = resolve_device(device)
+            return GMMParams(*[torch.as_tensor(a, device=dev)
+                               for a in arrays])
     params = _fit(X, n_components, seed, max_iter, reg_covar, device=device)
     if not all(bool(torch.isfinite(p).all()) for p in params):
         raise RuntimeError("GMM training produced non-finite parameters")
+    if cache_path is not None:
+        with open(cache_path, "wb") as f:
+            pickle.dump(tuple(p.cpu().numpy() for p in params), f)
     return params
 
 

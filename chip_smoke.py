@@ -20,7 +20,11 @@ Phases (any failure exits nonzero):
    inputs. An indefinite lane and an all-NaN lane come back NaN with the
    other lanes bit-identical. Kernel, plain, scan, CR and one-call library
    (``torch.linalg.solve`` on the dense matrix) times; the bound from the
-   FLOPs and bytes the solve needs.
+   FLOPs and bytes the solve needs. Then, on random SPD systems, the error,
+   kernel, plain and library times and bound at every shape the dataset
+   CLI launches: the batched path's 6x64, 4x64, 18x64, 12x64, 42x64, 28x64
+   and the serial path's 3xN, 1xN, 7xN for its three trials' N = 40, 42,
+   44.
 4. main    — stage 1 of the bench: 10 procedural monocular problems padded
    to 64 frames, ``make_kinematic_multistart`` once (warm-up, with the
    kernel's launch count) and 3 timed repeats; one more run with the probe
@@ -94,6 +98,22 @@ Phases (any failure exits nonzero):
    present with the same keys and shapes. Then the 6-camera solves once
    more under torch.profiler (device events per LM step, busy share of the
    CLI run's unprofiled solve wall).
+10. serial — the dataset CLI's serial per-trial path on phase 9's tree:
+   ``--run_monocular --clean --trials 3`` without ``--batched`` (each trial
+   alone at its own length, mode after mode; the physics-based mode in up
+   to three attempts), the kernel's launches per mode and shape (each mode
+   > 0, every shape one phase 3 timed), s/trial, each trial's decisions
+   (prior gate, line-scan shift, ground-plane ray shift and polish, stance,
+   the accepted physics attempt), MPE, MPJPE, CoM-velocity RMSE and
+   objective. Agreement with the JAX package's serial float32 run on the
+   same input (``tests/data/jax_serial_f32.json``, ``port_tree``): the
+   means held as in phase 9 (a line-scan-moved trial's objective compared
+   with the JAX objective under the re-polish's data), the same accepted
+   physics attempt on every trial, every JAX artifact present with its
+   keys and shapes; the JAX run on its own tree printed beside. Then the
+   batched path on the same three trials (its s/trial beside the serial
+   path's), and one trial's 1-lane ground-truth solve and 3-lane default
+   multistart under torch.profiler (the card's idle share).
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -119,6 +139,15 @@ TOL_GMM_NATS = 0.5    # port vs JAX GMM, mean log-likelihood per sample
 TOL_AR = 1e-6         # port vs JAX AR predictions on the training windows
 TOL_COMVEL = 0.05     # stage-2 mean CoM-velocity agreement, relative
 SHAPES = ((10, 64), (30, 64), (70, 64), (1, 256))
+# the dataset CLI's kernel shapes: the batched path's two subject groups
+# (jules 6, phantom 4 trials; probes x3, line-scans x7, padded to 64
+# frames), and the serial path's first SERIAL_TRIALS trials at their own
+# lengths (trial i of the synthetic test set has 40 + 2 i frames): the
+# heading multistart (3 lanes), the single solves (1) and the line-scan (7)
+SERIAL_TRIALS = 3
+CLI_SHAPES = ((6, 64), (4, 64), (18, 64), (12, 64), (42, 64), (28, 64))
+SERIAL_SHAPES = tuple((b, 40 + 2 * i) for i in range(SERIAL_TRIALS)
+                      for b in (3, 1, 7))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -340,7 +369,52 @@ def phase_kernel(dev, results):
     check_nan_lane(cuda_banded.solve, diag, lower, rhs, 6, all_nan,
                    "all-NaN")
     results["kernel"] = rows
-    return worst_rel, worst_abs, [r for r in rows if r["systems"] == "normal"]
+    cli_rows = kernel_cli_shapes(dev)
+    results["kernel_cli_shapes"] = cli_rows
+    worst_rel = max([worst_rel] + [r["rel_err"] for r in cli_rows])
+    worst_abs = max([worst_abs] + [r["max_abs_err"] for r in cli_rows])
+    return worst_rel, worst_abs, [r for r in rows if r["systems"] == "normal"
+                                  ] + cli_rows
+
+
+def kernel_cli_shapes(dev):
+    """The kernel at the dataset CLI's shapes (``CLI_SHAPES``,
+    ``SERIAL_SHAPES``) on random SPD systems: its error against the plain
+    version in float64 (<= 7e-4), its time (CUDA events, 20 launches after
+    3 warm-ups) beside the plain float32 version's, the one-call library
+    time (dense ``torch.linalg.solve``) and the bound."""
+    from cheetah_pose_estimation_tpu_torch.ops import banded, cuda_banded
+
+    rows = []
+    for path, shapes in (("batched CLI", CLI_SHAPES),
+                         ("serial CLI", SERIAL_SHAPES)):
+        for B, N in shapes:
+            d32, l32, r32 = cuda_banded.random_systems(B, N, B * 1000 + N,
+                                                       dev)
+            x = cuda_banded.solve(d32, l32, r32)
+            torch.cuda.synchronize()
+            ref = cuda_banded.solve_reference(d32.double(), l32.double(),
+                                              r32.double())
+            abs_err = float((x.double() - ref).abs().max())
+            row = {"B": B, "N": N, "systems": "random_spd", "path": path,
+                   "rel_err": abs_err / float(ref.abs().max()),
+                   "max_abs_err": abs_err,
+                   "kernel_ms": cuda_ms(lambda: cuda_banded.solve(d32, l32,
+                                                                  r32)),
+                   "plain_ms": cuda_ms(lambda: cuda_banded.solve_reference(
+                       d32, l32, r32), reps=3, warmup=1)}
+            dense = banded.to_dense(banded.BlockBanded(d32, l32))
+            rhs_col = r32.reshape(B, -1, 1)
+            row["library_ms"] = cuda_ms(
+                lambda: torch.linalg.solve(dense, rhs_col), reps=3, warmup=1)
+            del dense
+            row["bound_ms"], row["bound_by"] = bound(B, N)
+            row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
+            log(f"# kernel {row}")
+            if not (torch.isfinite(x).all() and row["rel_err"] <= TOL_REL):
+                raise AssertionError(f"kernel at {(B, N)}: {row}")
+            rows.append(row)
+    return rows
 
 
 def phase_main(dev, results):
@@ -935,6 +1009,11 @@ def artifacts(out_dir):
         elif name.startswith("autogen-contact") and name.endswith(".json"):
             with open(p, encoding="utf-8") as f:
                 out[rel] = sorted(json.load(f))
+        elif name.startswith("data_synth") and name.endswith(".csv"):
+            # the synthesized force-plate table's header (its rows follow
+            # the detected stances)
+            with open(p, encoding="utf-8") as f:
+                out[rel] = {"header": next(csv.reader(f))}
         elif name == "dataset_results.csv":
             with open(p, encoding="utf-8") as f:
                 rows = list(csv.reader(f))
@@ -1083,6 +1162,50 @@ def cli_gap(port, jax, port_obj, jax_obj, comparable, unstable=None):
                                      - jax.mean()) / scale}
 
 
+def agree_means(m, rows, rm, paths, comparable, jax_obj, other_m, label,
+                bad, tag="cli"):
+    """Mode ``m``'s per-mode means (the port's per-trial ``rows``) against
+    one recorded JAX run's (``rm``: per trial, its metrics), each within 2 %
+    (CoM-velocity 5 %), both ways, as it is or once the witnessed trials are
+    set aside (``cli_gap``: the port's objective lower than ``jax_obj`` on
+    a ``comparable`` problem, or, given the JAX run on the other rendering
+    ``other_m``, the reference does not reproduce itself there); the
+    multi-view truth with no trial set aside. Means outside their bars are
+    appended to ``bad``; the per-trial values are printed."""
+    keys = (("mpjpe_vs_truth", TOL_MPJPE),) if m == "ground-truth" \
+        else (("mpe", TOL_MPJPE), ("mpjpe", TOL_MPJPE),
+              ("CoM vel rmse", TOL_COMVEL))
+    a = {}
+    for k, tol in keys:
+        rk = "com_vel_rmse" if k == "CoM vel rmse" else k
+        jx = np.array([rm[p][rk] for p in paths])
+        unstable = None
+        if other_m is not None and m != "ground-truth":
+            jo = np.array([other_m[p][rk] for p in paths])
+            unstable = np.abs(jx - jo) > tol * np.abs(jo)
+        a[k] = dict(cli_gap(
+            [s[k] for s in rows], jx, [s["obj_cost"] for s in rows], jax_obj,
+            comparable if m != "ground-truth" else [False] * len(paths),
+            unstable), tol=tol)
+        if min(abs(a[k]["rel"]), abs(a[k]["rel_unexplained"])) > tol:
+            bad.append((m, k, a[k]))
+    log(f"# {tag} agree ({label}): {m}: " + ", ".join(
+        f"{k} port {v['port']:.3f} jax_f32 {v['jax_f32']:.3f} (rel "
+        f"{v['rel']:+.4f}; witnessed trials {v['witnessed']} (objective "
+        f"{v['witnessed_objective']}, reference unstable "
+        f"{v['witnessed_unstable']}), unexplained "
+        f"{v['rel_unexplained']:+.4f}, bar ±{v['tol']})"
+        for k, v in a.items()))
+    for p, s, c, jo in zip(paths, rows, comparable, jax_obj):
+        log(f"# {tag} agree ({label}): {m} {p} MPE port {s['mpe']:.2f} jax"
+            f" {rm[p]['mpe']:.2f}, MPJPE port {s['mpjpe']:.2f} jax "
+            f"{rm[p]['mpjpe']:.2f}, CoM-vel port {s['CoM vel rmse']:.4f}"
+            f" jax {rm[p]['com_vel_rmse']:.4f}, objective port "
+            f"{s['obj_cost']:.6g} jax {jo:.6g}"
+            + ("" if c else " (different stance)"))
+    return a
+
+
 def cli_agree(modes, paths, run, label, other=None):
     """The port's CLI modes against one recorded JAX CLI run ``run`` (its
     ``modes`` and ``decisions``): each per-mode mean within 2 %
@@ -1099,43 +1222,11 @@ def cli_agree(modes, paths, run, label, other=None):
     agree, bad = {}, []
     for m in CLI_MODES:
         rm = run["modes"][m]
-        rows = modes[m]["per_trial"]
-        comparable = same_stance if m == "physics-based" else [True] * len(
-            paths)
-        keys = (("mpjpe_vs_truth", TOL_MPJPE),) if m == "ground-truth" \
-            else (("mpe", TOL_MPJPE), ("mpjpe", TOL_MPJPE),
-                  ("CoM vel rmse", TOL_COMVEL))
-        a = {}
-        for k, tol in keys:
-            rk = "com_vel_rmse" if k == "CoM vel rmse" else k
-            jx = np.array([rm[p][rk] for p in paths])
-            unstable = None
-            if other is not None and m != "ground-truth":
-                jo = np.array([other["modes"][m][p][rk] for p in paths])
-                unstable = np.abs(jx - jo) > tol * np.abs(jo)
-            # the multi-view truth is held both ways, with no trial set aside
-            a[k] = dict(cli_gap(
-                [s[k] for s in rows], jx, [s["obj_cost"] for s in rows],
-                [rm[p]["obj_cost"] for p in paths],
-                comparable if m != "ground-truth" else [False] * len(paths),
-                unstable), tol=tol)
-            if min(abs(a[k]["rel"]), abs(a[k]["rel_unexplained"])) > tol:
-                bad.append((m, k, a[k]))
-        agree[m] = a
-        log(f"# cli agree ({label}): {m}: " + ", ".join(
-            f"{k} port {v['port']:.3f} jax_f32 {v['jax_f32']:.3f} (rel "
-            f"{v['rel']:+.4f}; witnessed trials {v['witnessed']} (objective "
-            f"{v['witnessed_objective']}, reference unstable "
-            f"{v['witnessed_unstable']}), unexplained "
-            f"{v['rel_unexplained']:+.4f}, bar ±{v['tol']})"
-            for k, v in a.items()))
-        for p, s, c in zip(paths, rows, comparable):
-            log(f"# cli agree ({label}): {m} {p} MPE port {s['mpe']:.2f} jax"
-                f" {rm[p]['mpe']:.2f}, MPJPE port {s['mpjpe']:.2f} jax "
-                f"{rm[p]['mpjpe']:.2f}, CoM-vel port {s['CoM vel rmse']:.4f}"
-                f" jax {rm[p]['com_vel_rmse']:.4f}, objective port "
-                f"{s['obj_cost']:.6g} jax {rm[p]['obj_cost']:.6g}"
-                + ("" if c else " (different stance)"))
+        agree[m] = agree_means(
+            m, modes[m]["per_trial"], rm, paths,
+            same_stance if m == "physics-based" else [True] * len(paths),
+            [rm[p]["obj_cost"] for p in paths],
+            None if other is None else other["modes"][m], label, bad)
     for k, m in (("prior_ok", "data-driven"), ("scan_shifts", "data-driven"),
                  ("polish_ray_shift", "default"),
                  ("polish_changed", "default"),
@@ -1166,7 +1257,7 @@ def phase_cli(dev, results, ref):
     6-camera and polish systems, hold the results against the JAX float32
     CLI run ``ref`` (``tests/data/jax_cli_f32.json``), and profile the
     6-camera solves. Returns (launches per shape of the CLI run, worst rel
-    err, worst abs err)."""
+    err, worst abs err, (the tree's root, the training table))."""
     import tempfile
 
     from cheetah_pose_estimation_tpu_torch.data import io as dio
@@ -1347,7 +1438,219 @@ def phase_cli(dev, results, ref):
         f"s, {gt['lm_steps']} LM steps) {prof}")
     out["profile_ground_truth"] = prof
     results["cli"] = out
-    return by_shape, worst_rel, worst_abs
+    return by_shape, worst_rel, worst_abs, (root, dset)
+
+
+# -- phase 10: the dataset CLI's serial per-trial path ------------------------
+
+def serial_modes(report, root, odir, paths, cam):
+    """Per mode of a serial CLI run's ``report``: s/trial (the mean of the
+    trials' walls), LM steps and kernel launches per shape, per-trial
+    decisions and scores (``cli_scores``)."""
+    scores = cli_scores(root, odir, paths, cam)
+    modes = {}
+    for m in CLI_MODES:
+        rep = report["modes"][m]
+        pt = [rep["per_trial"][p] for p in paths]
+        launches = {}
+        for t in pt:
+            for k, v in t["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        modes[m] = {
+            "trials": rep["trials"],
+            "s_per_trial": float(np.mean([t["wall_s"] for t in pt])),
+            "wall_s": [t["wall_s"] for t in pt],
+            "lm_steps": int(sum(launches.values())),
+            "launches_by_shape": shape_keys(launches),
+            "decisions": {p: {k: v for k, v in t.items()
+                              if k not in ("wall_s", "launches")}
+                          for p, t in zip(paths, pt)},
+            "per_trial": scores[m]}
+    return modes
+
+
+def phase_serial(dev, results, ref, root, dset):
+    """The dataset CLI's serial per-trial path (``run_dataset.main
+    --run_monocular --clean --trials 3``, no ``--batched``) on phase 9's
+    tree: every trial alone at its own length, mode after mode, the
+    physics-based mode in up to three attempts. Held against the JAX
+    package's serial float32 run on the same input
+    (``tests/data/jax_serial_f32.json``, ``port_tree``): the means as phase
+    9 holds them (``agree_means``; in the data-driven mode a trial the
+    line-scan moved compares with the JAX objective under the re-polish's
+    data), each trial's accepted physics attempt equal to the JAX run's,
+    every JAX artifact present with its keys and shapes. Then the batched
+    path on the same trials (s/trial), and one trial's ground-truth solve
+    (one lane) and default solve (the 3-lane multistart, the 1-lane polish)
+    under torch.profiler. Returns the launches per shape."""
+    import tempfile
+
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+    from cheetah_pose_estimation_tpu_torch.ops import banded, cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import estimator
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+
+    out = {}
+    odir = tempfile.mkdtemp(prefix="serial_")
+    paths = ref["trials"]
+    cam = dio.load_metadata(os.path.join(root, paths[0]))["monocular_cam"]
+    for p in paths:
+        xy, lik, _ = dio.load_dlc_points(os.path.join(root, p, "dlc"))
+        dg, rp = digest(xy, lik), ref["port_tree"]["tree"][p]
+        dpp = max(abs(a - b) for a, b in zip(dg["px_proj"], rp["px_proj"]))
+        if not (dg["gate_md5"] == rp["gate_md5"] and dpp <= TOL_PX_SAME):
+            raise AssertionError(f"the tree's {p} differs from the serial "
+                                 f"reference run's input ({dpp:.2e} px)")
+
+    # the main path, with the plain banded solvers counted (none may run)
+    os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
+    plain = {"scan": 0, "cr": 0}
+    saved = banded.solve, banded.cr_solve
+
+    def counted(name, fn):
+        def run(*a, **k):
+            plain[name] += 1
+            return fn(*a, **k)
+        return run
+
+    banded.solve, banded.cr_solve = counted("scan", saved[0]), \
+        counted("cr", saved[1])
+    cuda_banded.reset_launches()
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        run_dataset.main(["--run_monocular", "--clean", "--trials",
+                          str(len(paths)), "--root_dir", root,
+                          "--out_dir_prefix", odir], report=report)
+        torch.cuda.synchronize()
+    finally:
+        banded.solve, banded.cr_solve = saved
+    out["cli_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    out["plain_solves"] = plain
+    log(f"# serial: run_dataset.main {out['cli_s']:.2f} s, kernel launches "
+        f"{shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        raise AssertionError(f"the serial CLI ran plain banded solves on the "
+                             f"card: {plain}")
+    untimed = sorted(set(by_shape) - set(SERIAL_SHAPES))
+    if untimed:
+        raise AssertionError(f"shapes not timed in phase 3: {untimed}")
+    modes = serial_modes(report, root, odir, paths, cam)
+    for m in CLI_MODES:
+        mo = modes[m]
+        log(f"# serial: mode {m}: {mo['s_per_trial']:.4f} s/trial (walls "
+            f"{[round(w, 3) for w in mo['wall_s']]} s), LM steps "
+            f"{mo['lm_steps']}, launches {mo['launches_by_shape']}")
+        if not mo["lm_steps"]:
+            raise AssertionError(f"mode {m} did not launch the kernel")
+        for p, sc in zip(paths, mo["per_trial"]):
+            dec = dict(mo["decisions"][p])
+            if "stance" in dec:
+                dec["stance"] = f"{int(np.sum(dec['stance']))} frames"
+            log(f"# serial: {m} {p} MPE {sc['mpe']:.2f} mm MPJPE "
+                f"{sc['mpjpe']:.2f} mm CoM-vel {sc['CoM vel rmse']:.4f} m/s "
+                f"(vs truth: MPJPE {sc['mpjpe_vs_truth']:.2f} mm) objective "
+                f"{sc['obj_cost']:.6g} decisions {dec}")
+    out["modes"] = modes
+
+    # agreement with the JAX serial run on the same input; its run on its
+    # own tree is printed beside, and names the trials where the reference
+    # does not reproduce itself
+    agree, bad = {}, []
+    run, own = ref["port_tree"], ref
+    for label, r, other in (("same input", run, own),
+                            ("JAX tree", own, None)):
+        dec = r["decisions"]
+        stance_same = [modes["physics-based"]["decisions"][p].get("stance")
+                       == dec["physics-based"][p].get("stance")
+                       for p in paths]
+        a = {}
+        for m in CLI_MODES:
+            jax_obj = [dec.get(m, {}).get(p, {}).get(
+                "obj_cost_repolish", r["modes"][m][p]["obj_cost"])
+                for p in paths]
+            a[m] = agree_means(
+                m, modes[m]["per_trial"], r["modes"][m], paths,
+                stance_same if m == "physics-based" else [True] * len(paths),
+                jax_obj, None if other is None else other["modes"][m], label,
+                bad if label == "same input" else [], tag="serial")
+        for m in ("default", "data-driven", "physics-based") \
+                if label == "same input" else ():
+            for p in paths:
+                mine = modes[m]["decisions"][p]
+                theirs = {k: v for k, v in dec[m][p].items()
+                          if k not in ("ok", "attempts")}
+                for k, v in sorted(theirs.items()):
+                    if k == "stance":
+                        same = "same" if mine.get(k) == v else "different"
+                        log(f"# serial agree ({label}): {m} {p} stance "
+                            f"frames port {int(np.sum(mine.get(k, 0)))} jax "
+                            f"{int(np.sum(v))} ({same})")
+                    else:
+                        log(f"# serial agree ({label}): {m} {p} {k} port "
+                            f"{mine.get(k)} jax {v}")
+        attempts = {p: (modes["physics-based"]["decisions"][p]["attempt"],
+                        dec["physics-based"][p].get("attempt"))
+                    for p in paths}
+        a["physics_attempt"] = attempts
+        log(f"# serial agree ({label}): physics attempt (port, jax) "
+            f"{attempts}")
+        if label == "same input" and any(x != y for x, y in
+                                         attempts.values()):
+            bad.append(("physics-based", "attempt", attempts))
+        agree[label] = a
+    mine = artifacts(odir)
+    missing = [p for p in ref["artifacts"] if p not in mine]
+    differ = [p for p, v in ref["artifacts"].items()
+              if p in mine and mine[p] != v]
+    agree["artifacts"] = {"jax": len(ref["artifacts"]), "port": len(mine),
+                          "missing": missing, "differ": differ}
+    log(f"# serial agree: artifacts: JAX {len(ref['artifacts'])}, port "
+        f"{len(mine)}, missing {missing[:5]} ({len(missing)}), differ "
+        f"{differ[:5]} ({len(differ)})")
+    for p in differ[:3]:
+        log(f"# serial agree: {p}: port {mine[p]} jax {ref['artifacts'][p]}")
+    out["agree"] = agree
+    if bad or missing or differ:
+        raise AssertionError(f"the serial CLI disagrees with the JAX run: "
+                             f"{bad}, missing {missing[:5]}, differ "
+                             f"{differ[:5]}")
+
+    # the batched path on the same trials (two subject groups), for its
+    # s/trial beside the serial path's; after the serial path's launches
+    # were read
+    brep = {}
+    run_dataset.main(["--run_monocular", "--batched", "--clean", "--trials",
+                      str(len(paths)), "--root_dir", root, "--out_dir_prefix",
+                      tempfile.mkdtemp(prefix="serial_batched_")],
+                     report=brep)
+    out["batched_s_per_trial"] = {
+        m: brep["modes"][m]["wall_s"] / len(paths) for m in CLI_MODES}
+    log("# serial: s/trial serial vs batched on the same trials: " + ", ".join(
+        f"{m} {modes[m]['s_per_trial']:.4f} vs "
+        f"{out['batched_s_per_trial'][m]:.4f}" for m in CLI_MODES))
+
+    # the card's idle share in a 1-lane solve (the multi-view ground truth)
+    # and in the default mode (the 3-lane multistart and the 1-lane
+    # polish), one trial each under torch.profiler, against the CLI run's
+    # unprofiled walls of the same work
+    p, (cheetah, date, trial) = paths[0], run_dataset.TEST_SET[0]
+    for m, kw in (("ground-truth", {}), ("default", dict(
+            monocular_enable=True))):
+        def solve():
+            est = estimator.init_trajectory(root, p, cheetah, **kw)
+            estimator.estimate_kinematics(est, save=False)
+        wall = modes[m]["wall_s"][0]
+        cuda_banded.reset_launches()
+        prof = profiled(solve, wall)
+        prof["lm_steps"] = cuda_banded.launches
+        prof["launches_by_shape"] = shape_keys(cuda_banded.launches_by_shape)
+        prof["device_idle_share"] = 1.0 - prof["device_busy_share"]
+        log(f"# serial profile: {m} {p} (CLI run {wall:.3f} s) {prof}")
+        out[f"profile_{m}"] = prof
+    results["serial"] = out
+    return by_shape
 
 
 def phase_agree(ctx, rows_kernel, results):
@@ -1430,7 +1733,12 @@ def main():
     with open(os.path.join(HERE, "tests", "data", "jax_cli_f32.json"),
               encoding="utf-8") as f:
         cli_ref = json.load(f)
-    cli_shapes, cli_rel, cli_abs = phase_cli(dev, results, cli_ref)
+    cli_shapes, cli_rel, cli_abs, (root, dset) = phase_cli(dev, results,
+                                                          cli_ref)
+    with open(os.path.join(HERE, "tests", "data", "jax_serial_f32.json"),
+              encoding="utf-8") as f:
+        serial_ref = json.load(f)
+    serial_shapes = phase_serial(dev, results, serial_ref, root, dset)
     worst_rel = max(worst_rel, phys_rel, cli_rel)
     worst_abs = max(worst_abs, phys_abs, cli_abs)
 
@@ -1443,11 +1751,13 @@ def main():
         "source": "cheetah_pose_estimation_tpu_torch/csrc/banded_solve.cu",
         "replaces": "cheetah_pose_estimation_tpu/ops/pallas_banded.py:262,309",
         "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values())
-        + sum(physics_shapes.values()) + sum(cli_shapes.values()),
+        + sum(physics_shapes.values()) + sum(cli_shapes.values())
+        + sum(serial_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
                              "physics": shape_keys(physics_shapes),
-                             "cli": shape_keys(cli_shapes)},
+                             "cli": shape_keys(cli_shapes),
+                             "serial_cli": shape_keys(serial_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],
@@ -1456,7 +1766,7 @@ def main():
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "roofline_share": main_shape["roofline_share"],
-        "shapes": [{"B": r["B"], "N": r["N"], **{k: r[k] for k in keys}}
+        "shapes": [{"B": r["B"], "N": r["N"], **{k: r.get(k) for k in keys}}
                    for r in timed]}]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -167,14 +167,17 @@ def test_indefinite_lane_is_nan_others_untouched(solver):
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     diag, lower, b = (torch.zeros(1, 4, 54, 54), torch.zeros(1, 3, 4, 54, 54),
                       torch.zeros(1, 4, 54))
-    with pytest.raises(ValueError):
+    with pytest.raises(cb.KernelInputError):
         cb.solve(diag.to("meta"), lower.to("meta"), b.to("meta"))
     with pytest.raises(TypeError):
         cb._check(diag.double(), lower, b)
-    with pytest.raises(ValueError):
+    with pytest.raises(cb.KernelInputError):
         cb._check(diag[:, :, :30, :30], lower, b)
-    with pytest.raises(ValueError):
+    with pytest.raises(cb.KernelInputError):
         cb._check(diag.mT, lower, b)
+    # not a ValueError: the physics fallback never takes it for a failed
+    # solve
+    assert not issubclass(cb.KernelInputError, ValueError)
     shifted = torch.zeros(diag.numel() + 1)[1:].view(diag.shape)
-    with pytest.raises(ValueError, match="aligned"):
+    with pytest.raises(cb.KernelInputError, match="aligned"):
         cb._check(shifted, lower, b)

@@ -58,8 +58,8 @@ def test_witnessed_trial_is_set_aside():
 
 def test_artifacts_layout(tmp_path):
     """``artifacts`` records a pickle's keys and shapes, a reprojection
-    CSV's header, row count and frame range, a contact file's keys and the
-    results table's header and index, by path."""
+    CSV's header, row count and frame range, a contact file's keys, a force
+    table's header and the results table's header and index, by path."""
     d = tmp_path / "2019_03_09" / "jules" / "flick1" / "fte_kinematic"
     d.mkdir(parents=True)
     with open(d / "fte.pickle", "wb") as f:
@@ -70,6 +70,8 @@ def test_artifacts_layout(tmp_path):
     g = tmp_path / "2019_03_09" / "jules" / "flick1" / "grf"
     g.mkdir()
     (g / "autogen-contact.json").write_text(json.dumps({"b": 1, "a": 2}))
+    (g / "data_synth.csv").write_text("force_plate,frame,Fx,Fy,Fz\n"
+                                      "0,0,0.5,0.0,1.5\n")
     (tmp_path / "dataset_results.csv").write_text("t,x\nm,y\nmpe,1\n")
     a = cs.artifacts(str(tmp_path))
     p = os.path.join("2019_03_09", "jules", "flick1")
@@ -79,6 +81,8 @@ def test_artifacts_layout(tmp_path):
         "header": [["bodyparts", "nose", "nose"], ["coords", "x", "y"]],
         "rows": 2, "frames": ["0", "4"]}
     assert a[os.path.join(p, "grf", "autogen-contact.json")] == ["a", "b"]
+    assert a[os.path.join(p, "grf", "data_synth.csv")] == {
+        "header": ["force_plate", "frame", "Fx", "Fy", "Fz"]}
     assert a["dataset_results.csv"] == {"header": [["t", "x"], ["m", "y"]],
                                         "index": ["mpe"]}
 

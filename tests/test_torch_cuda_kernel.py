@@ -53,7 +53,7 @@ def test_kernel_nan_lane_and_rejects():
     assert torch.equal(x[[0, 1, 3]], ok[[0, 1, 3]])
     with pytest.raises(TypeError):
         cb.solve(diag.double(), lower.double(), rhs.double())
-    with pytest.raises(ValueError):
+    with pytest.raises(cb.KernelInputError):
         cb.solve(diag[..., :50, :50].contiguous(), lower, rhs)
 
 

@@ -4,7 +4,10 @@ machine without them, import the port, build and solve a 2-trial 16-frame
 problem on the CPU, train small priors and run the data-driven stage and
 then the physics stage on it with tiny schedules; render the first trial of the dataset CLI's synthetic test
 set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
-(``run_monocular_batched``, multi-view); then check ``sys.modules``. No
+(``run_monocular_batched``, multi-view), then the serial per-trial path on
+it (``run_monocular``, the default and physics-based modes, tiny
+schedules, priors trained on small procedural tables); then check
+``sys.modules``. No
 module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
 own copies of the tables it needs."""
 import os
@@ -94,6 +97,27 @@ SCRIPT = textwrap.dedent("""
                                centered=True)[0].mean()
     assert mpjpe < 60.0, mpjpe
     assert rep["ground-truth"]["trials"] == [os.path.join(d, c, t)]
+    from cheetah_pose_estimation_tpu_torch.solver import kinetic as kn
+    kin.KinematicFTE.make_solver.__defaults__ = (
+        ((10.0, 1), (1.0, 2)),) + kin.KinematicFTE.make_solver.__defaults__[1:]
+    kn.KineticFTE.make_solver.__defaults__ = (
+        ((3.0, 1), (1.0, 2)),) + kn.KineticFTE.make_solver.__defaults__[1:]
+    depth_anchor.POLISH_STAGES = ((1.0, 2),)
+    dset = os.path.join(tmp, "priors", "dataset_full_pose.csv")
+    dataset.save_pose_dataset(dset, train)
+    os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
+    rep = {}
+    run_dataset.run_monocular(tmp, os.path.join(tmp, "serial"),
+                              modes=("default", "physics-based"),
+                              dtype=torch.float64, device="cpu",
+                              verbose=False, report=rep)
+    base = os.path.join(tmp, "serial", d, c, t)
+    for sub in ("fte_kinematic_orig_2", "fte_kinetic_2"):
+        out = data_ops.load_pickle(os.path.join(base, sub, "fte.pickle"))
+        assert out["q"].shape == (40, 54) and np.isfinite(out["q"]).all()
+    assert os.path.exists(os.path.join(base, "grf", "data_synth.csv"))
+    assert rep["physics-based"]["per_trial"][os.path.join(d, c, t)][
+        "attempt"] == 1
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                          "cheetah_pose_estimation_tpu"))

@@ -193,3 +193,46 @@ def test_motion_model_and_anchors_match_jax(tables):
     assert _rel(jar.adaptive_motion_weights(mj, ypj, x, vl),
                 tar.adaptive_motion_weights(mc, ypt, x, vl)) <= 1e-12
     assert _rel(jar.motion_weights(mj), tar.motion_weights(mc)) <= 1e-12
+
+
+def test_prior_caches_round_trip_under_their_own_names(tmp_path,
+                                                       monkeypatch):
+    """``gmm.fit`` and ``train_motion_model`` with a cache directory (the
+    dataset's own, ``data_ops.prior_cache_dir``) store their fits there
+    under the port's names and load them back unchanged without training;
+    the JAX package's fits in the same directory carry other names, so
+    neither package reads the other's."""
+    from cheetah_pose_estimation_tpu.utils import data_ops as jops
+    from cheetah_pose_estimation_tpu_torch.utils import data_ops as tops
+
+    train = bench_lib.procedural_pose_table((100, 101), n_frames=60)
+    val = bench_lib.procedural_pose_table((200,), n_frames=60)
+    dset = str(tmp_path / "dataset_full_pose.csv")
+    tds.save_pose_dataset(dset, train)
+    tds.save_pose_dataset(str(tmp_path / "validation_dataset.csv"), val)
+    cache = tops.prior_cache_dir(dset)
+    assert cache == jops.prior_cache_dir(dset) == str(tmp_path)
+    X = train.data[:, 6:28]
+    g1 = tgmm.fit(X, 3, max_iter=5, device="cpu", cache_dir=cache)
+    m1 = tar.train_motion_model(dset, device="cpu", cache_dir=cache)
+    jgmm.fit(X, n_components=3, max_iter=5, cache_dir=cache)
+    names = sorted(os.listdir(tmp_path))
+    ours = [n for n in names if n.endswith(".torch.pkl")]
+    assert [n.split("_model_")[0] for n in ours] == ["gmm", "lr"]
+    assert any(n.endswith(".tpu") for n in names)
+
+    def no_training(*a, **k):
+        raise AssertionError("trained although a cached fit exists")
+
+    monkeypatch.setattr(tgmm, "_fit", no_training)
+    monkeypatch.setattr(tar, "fit_multitask_lasso", no_training)
+    g2 = tgmm.fit(X, 3, max_iter=5, device="cpu", cache_dir=cache)
+    m2 = tar.train_motion_model(dset, device="cpu", cache_dir=cache)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    assert np.array_equal(m1.coef, m2.coef)
+    assert np.array_equal(m1.intercept, m2.intercept)
+    assert m1.validation_rmse == m2.validation_rmse
+    # other settings are another fit
+    with pytest.raises(AssertionError, match="trained although"):
+        tgmm.fit(X, 3, max_iter=6, device="cpu", cache_dir=cache)
