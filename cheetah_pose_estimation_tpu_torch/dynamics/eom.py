@@ -296,5 +296,19 @@ def tau_as_dict(tau: np.ndarray) -> dict:
     return {k: np.stack(v, axis=1) for k, v in out.items()}
 
 
+def tau_from_dict(tau: dict, n_frames: int) -> np.ndarray:
+    """{motor name: (N, n_components)} -> (n_frames, 22) torque array in
+    ``TORQUE_MAP.names`` order, zero for motors the dict lacks (the
+    inverse of :func:`tau_as_dict`)."""
+    out = np.zeros((n_frames, len(TORQUE_MAP.names)))
+    for col, name in enumerate(TORQUE_MAP.names):
+        motor = name.rsplit(":", 1)[0]
+        if motor in tau:
+            idx = [n for n in TORQUE_MAP.names
+                   if n.startswith(motor + ":")].index(name)
+            out[:, col] = tau[motor][:, idx]
+    return out
+
+
 TORQUE_MAP = build_torque_map()
 N_TAU = TORQUE_MAP.B.shape[1]

@@ -8,11 +8,12 @@ calibration, metadata), the data-driven mode's settings and prior gate, the
 training-table lookup, the physics mode's warm start, contact files and
 synthesized force profiles, and the serial per-trial solves
 (``estimate_kinematics``, ``estimate_kinetics``), each trial solved alone
-at its own length on the device of the run (the card by default). Not
-ported: the pairwise pseudo-measurements (``enable_ppm``), the joint
+at its own length on the device of the run (the card by default), and the
+force-plate pipeline's GRF solves on a saved solution (``estimate_grf``,
+the torque-anchored re-estimation; ``estimate_static_grf``, per frame).
+Not ported: the pairwise pseudo-measurements (``enable_ppm``), the joint
 shutter-delay solve and the rolling AR refinement (ROADMAP Queue 1 #12, #8,
-#11), the static and re-estimated GRFs. Host work is numpy and float64
-torch on the CPU.
+#11). Host work is numpy and float64 torch on the CPU.
 
 Directory layout consumed (the reference's):
 
@@ -23,7 +24,8 @@ Directory layout consumed (the reference's):
 
 Outputs land in ``fte_kinematic`` (multi-view), ``fte_kinematic_orig_<cam>``
 (monocular default), ``fte_kinematic_<cam>`` (data-driven) and
-``fte_kinetic_<cam>`` (physics-based) under ``<out_dir_prefix>/<data_path>``.
+``fte_kinetic_<cam>`` (physics-based; ``fte_kinetic`` multi-view) and
+``fte_grf`` (the GRF re-estimation) under ``<out_dir_prefix>/<data_path>``.
 """
 from __future__ import annotations
 
@@ -384,6 +386,19 @@ def _load_warm_start(est: CheetahEstimator, monocular: bool,
     return dio.load_fte_pickle(path)
 
 
+def _pruned_stance(est: CheetahEstimator, base: str, q: np.ndarray,
+                   n_frames: int) -> np.ndarray:
+    """The (n_frames, 4) stance matrix of ``<base>/grf/autogen-contact.json``
+    pruned on the trajectory ``q``."""
+    from ..solver import kinetic as kn
+
+    with open(os.path.join(base, "grf", "autogen-contact.json"),
+              encoding="utf-8") as f:
+        cj = json.load(f)
+    stance = kn.stance_matrix(cj["contacts"], cj["start_frame"], n_frames)
+    return kn.prune_stance(stance, q, est.subject, 1.0 / est.scene.fps)
+
+
 def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().double().cpu().numpy()
 
@@ -430,9 +445,10 @@ def estimate_kinematics(est: CheetahEstimator,
       solver from the shifted trajectory, its base pin and AR anchors
       moved with it.
 
-    ``obj_cost`` is the objective of the saved q under the data of the solve
-    that produced it (after a re-polish, the shifted base pin and anchors;
-    the JAX package evaluates it under the data before the shift). With
+    ``obj_cost`` is the objective of the saved q under the data of the
+    solve before the line-scan: after a re-polish it is not the re-polished
+    problem's objective (its base pin and AR anchors moved with the shift),
+    as in the JAX package, which the port keeps. With
     ``save``, a finite solution is written to ``fte_kinematic``,
     ``fte_kinematic_orig_<cam>`` (default) or ``fte_kinematic_<cam>``
     (data-driven). With ``report``, the decisions taken go into it:
@@ -582,13 +598,13 @@ def estimate_kinematics(est: CheetahEstimator,
             # pin and AR anchors moved with it
             q_shift = est.q.copy()
             q_shift[:, :3] += float(shifts[0]) * rays[0]
-            data = data._replace(base_ref=tens(q_shift[:, :6])[None])
+            data2 = data._replace(base_ref=tens(q_shift[:, :6])[None])
             if use_ar:
                 yp2, vl2 = armodel.anchor_predictions(
                     mm, sk.relative_pose(torch.as_tensor(q_shift)).numpy())
-                data = data._replace(ar=data.ar._replace(
+                data2 = data2._replace(ar=data2.ar._replace(
                     y_pred=tens(yp2)[None], valid=tens(vl2)[None]))
-            st2 = run(tens(q_shift)[None], data)
+            st2 = run(tens(q_shift)[None], data2)
             est.q = _np(st2.q[0])
             state = state._replace(q=st2.q)
             if solver_output:
@@ -704,13 +720,8 @@ def estimate_kinetics(est: CheetahEstimator,
     est.com_vel = d["com_vel"]
     est.com_pos = d["com_pos"]
     base = est._base(out_dir_prefix)
-    with open(os.path.join(base, "grf", "autogen-contact.json"),
-              encoding="utf-8") as f:
-        cj = json.load(f)
     N = p.end_frame - p.start_frame
-    stance = kn.stance_matrix(cj["contacts"], cj["start_frame"], N)
-    stance = kn.prune_stance(stance, q_warm, est.subject,
-                             1.0 / est.scene.fps)
+    stance = _pruned_stance(est, base, q_warm, N)
     if report is not None:
         report["stance"] = stance.astype(int).tolist()
     if synthesised_grf:
@@ -751,4 +762,95 @@ def estimate_kinetics(est: CheetahEstimator,
         if monocular:
             dir_name = f"{dir_name}_{est.scene.cam_idx}"
         est.save(dir_name, fname=out_fname, out_dir_prefix=out_dir_prefix)
+    return ok
+
+
+def estimate_static_grf(est: CheetahEstimator,
+                        out_dir_prefix: Optional[str] = None,
+                        dtype: torch.dtype = torch.float32,
+                        device: DeviceLike = None):
+    """Per-frame static GRFs of the saved kinematic solution
+    (``_load_warm_start``): with its q, dq and ddq fixed, the contact forces
+    that best close the base's equation of motion within the bounds, the
+    friction polyhedron and the stance of ``grf/autogen-contact.json``
+    pruned on q (``solver.static_grf``), all frames at once on ``device``
+    (the card by default) in ``dtype``. Returns (grf_z (N, 4), grf_xy
+    (N, 4, 4)) in body weights, as numpy float64."""
+    from ..solver.static_grf import estimate_static_grf as solve
+
+    dev = resolve_device(device)
+    d = _load_warm_start(est, False, out_dir_prefix)
+    q = np.asarray(d["q"], np.float64)
+    stance = _pruned_stance(est, est._base(out_dir_prefix), q, q.shape[0])
+    tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    gz, gxy = solve(tens(q), tens(d["dq"]), tens(d["ddq"]), tens(stance),
+                    est.subject)
+    return _np(gz), _np(gxy)
+
+
+def grf_problem(est: CheetahEstimator, out_dir_prefix: Optional[str] = None):
+    """The GRF re-estimation's problem of a trial: its warm start, the
+    saved physics solution ``fte_kinetic``, whose torques become a
+    quadratic anchor of weight (0.1 max(mean |tau|, 1e-2))^-2, the GRFs
+    solved for (none fixed) on the stance of ``grf/autogen-contact.json``
+    pruned on the warm start, and the 0.03 m foot-height box. Returns
+    (the ``KineticFTE``, the ``KineticData`` with numpy leaves, the warm
+    start (N, 54), the pruned stance (N, 4))."""
+    from ..dynamics.eom import tau_from_dict
+    from ..solver import kinetic as kn
+
+    p = est.params
+    base = est._base(out_dir_prefix)
+    prev = dio.load_fte_pickle(os.path.join(base, "fte_kinetic",
+                                            "fte.pickle"))
+    q_warm = np.asarray(prev["q"], np.float64)
+    N = q_warm.shape[0]
+    tau_prev = tau_from_dict(prev["tau"], N)
+    stance = _pruned_stance(est, base, q_warm, N)
+    scale = max(float(np.abs(tau_prev).mean()), 1e-2)
+    kd = kn.KineticData(
+        base=est.data, stance=stance, grf_fixed=np.zeros((N, 4)),
+        grf_xy_fixed=np.zeros((N, 4, 4)), use_fixed_grf=np.asarray(0.0),
+        q_warm=q_warm, tau_anchor=tau_prev,
+        tau_anchor_weight=np.asarray(1.0 / (0.1 * scale)**2),
+        ground_z=np.asarray(p.ground_plane_height))
+    fte = kn.KineticFTE(kn.KineticConfig(
+        fisheye=not p.kinetic_dataset, robust=not p.hand_labeled_data,
+        kinetic_dataset=p.kinetic_dataset, foot_height_bound=0.03,
+        cam_multipliers=(1.0, 1.0, 0.6, 0.6) if p.kinetic_dataset else ()),
+        est.subject)
+    return fte, kd, q_warm, stance
+
+
+def estimate_grf(est: CheetahEstimator, out_dir_prefix: Optional[str] = None,
+                 solver_output: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None,
+                 report: Optional[dict] = None) -> bool:
+    """GRF re-estimation of a force-plate trial (:func:`grf_problem`: the
+    GRFs solved for with the torques anchored to the saved physics
+    solution's), alone at its own length on ``device`` (the card by
+    default) in ``dtype``. The solved q, objective, torques and GRFs go
+    into ``est``, and a finite solution is written to ``fte_grf``. With
+    ``report``, the pruned stance matrix goes into it.
+    Returns whether q is finite."""
+    dev = resolve_device(device)
+    t0 = time.time()
+    fte, kd, q_warm, stance = grf_problem(est, out_dir_prefix)
+    if report is not None:
+        report["stance"] = stance.astype(int).tolist()
+    kbat, qw = pbatch.pad_and_stack_kinetic([kd], [q_warm], dtype=dtype,
+                                            device=dev)
+    state = fte.make_solver()(qw, kbat)
+    est.q = _np(state.q[0])
+    est.opt_time_s = time.time() - t0
+    est.obj_cost = float(fte.objective(state.q, kbat)[0])
+    tau, gz, gxy = fte.forces(state.q, kbat)
+    est.tau, est.grf_z, est.grf_xy = _np(tau[0]), _np(gz[0]), _np(gxy[0])
+    ok = bool(np.all(np.isfinite(est.q)))
+    if solver_output:
+        print(f"grf re-estimation in {est.opt_time_s:.1f}s, "
+              f"cost={float(state.cost[0]):.2f}")
+    if ok:
+        est.save("fte_grf", fname="fte", out_dir_prefix=out_dir_prefix)
     return ok

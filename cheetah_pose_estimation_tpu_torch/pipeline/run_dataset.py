@@ -1,14 +1,16 @@
-"""The dataset CLI: its monocular paths.
+"""The dataset CLI: its monocular and force-plate paths.
 
 Port of ``cheetah_pose_estimation_tpu/pipeline/run_dataset.py`` for
-``--materialize_synthetic`` and ``--run_monocular --clean``, serial or
-``--batched``::
+``--materialize_synthetic``, ``--run_monocular --clean`` (serial or
+``--batched``) and ``--run_kinetic [--clean]``::
 
     python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
         --materialize_synthetic --root_dir R
     CHEETAH_DATA_DRIVEN_DATASET=P \
     python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
         --run_monocular [--batched] --clean --root_dir R --out_dir_prefix O
+    python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
+        --run_kinetic --clean --root_dir R --out_dir_prefix O
 
 The first renders the 10-trial synthetic test set (AcinoSet directory
 layout, 6 fisheye cameras, correlated DLC failures) into R; the second
@@ -18,7 +20,11 @@ trial's artifacts under O and the per-mode metrics against the multi-view
 solve to ``O/dataset_results.csv``, in the layout pandas writes for the JAX
 package. Without ``--batched`` each trial is solved alone, mode after mode
 (:func:`run_monocular`); with it, each mode's trials of one subject are one
-batch (``batched.run_monocular_batched``). The study, kinetic-set and
+batch (``batched.run_monocular_batched``). The third runs the force-plate
+pipeline (:func:`run_kinetic`) over the 5 trials of ``KINETIC_SET`` under
+``R/kinetic_dataset`` and then its analysis (:func:`kinetic_analysis`); as
+in the JAX CLI, no flag renders that tree
+(:func:`materialize_synthetic_kinetic_testset` does). The study and
 analysis flags are not defined, and the post-process plots are not made.
 """
 from __future__ import annotations
@@ -57,12 +63,28 @@ TEST_SET: Tuple[Tuple[str, str, str], ...] = (
 
 CAM_OVERRIDES = [0, 0, 0, 3, 3, 3, 5, 0, 3, 0]
 
-def _reference_gt_trajectory(n_frames: int, seed: int) -> np.ndarray:
+# the 5 force-plate trials (cheetah, date, trial)
+KINETIC_SET: Tuple[Tuple[str, str, str], ...] = (
+    ("arabia", "2009_09_07", "06"),
+    ("shiraz", "2009_09_07", "04"),
+    ("shiraz", "2009_09_08", "04"),
+    ("shiraz", "2009_09_11", "01"),
+    ("shiraz", "2009_09_11", "02"),
+)
+
+
+def _reference_gt_trajectory(n_frames: int, seed: int,
+                             fps: float = 120.0) -> np.ndarray:
     """Ground-truth q of a synthetic trial: the procedural gallop of
-    ``n_frames`` at 120 fps (the reference's shipped solutions, which the
+    ``n_frames`` at ``fps`` (the reference's shipped solutions, which the
     JAX package reads first where they exist, are not in the
     repository)."""
-    return syn.gallop_trajectory(n_frames, fps=120.0, seed=seed)
+    return syn.gallop_trajectory(n_frames, fps=fps, seed=seed)
+
+
+def kinetic_path(cheetah: str, date: str, trial: str) -> str:
+    """The trial directory of a force-plate trial, under the root."""
+    return os.path.join("kinetic_dataset", date, cheetah, f"trial{trial}")
 
 
 def materialize_synthetic_testset(root_dir: str, n_cams: int = 6,
@@ -90,6 +112,35 @@ def materialize_synthetic_testset(root_dir: str, n_cams: int = 6,
                             occlusion_rate=occlusion_rate,
                             confusion_rate=confusion_rate)
         syn.write_trial_dir(tr, root_dir, data_path, monocular_cam=2,
+                            ground_plane_height=contacts_mod.
+                            estimate_ground_height(q_gt, subject))
+        with open(os.path.join(root_dir, data_path, "synthetic_gt.pickle"),
+                  "wb") as f:
+            pickle.dump({"q": q_gt, "positions": tr.markers_gt}, f)
+        made.append(data_path)
+    return made
+
+
+def materialize_synthetic_kinetic_testset(root_dir: str, n_cams: int = 4,
+                                          seed: int = 100) -> List[str]:
+    """Write synthetic copies of the 5 force-plate trials: 50-frame
+    procedural gallops at 200 fps seen by ``n_cams`` pinhole cameras 6 m
+    out (the 2009 kinetic-dataset rig), DLC noise 2 px and 1 % outliers,
+    monocular camera 0, plus ``synthetic_gt.pickle``. Host work in
+    float64."""
+    made = []
+    for i, (cheetah, date, trial) in enumerate(KINETIC_SET):
+        data_path = kinetic_path(cheetah, date, trial)
+        q_gt = _reference_gt_trajectory(50, seed + i, fps=200.0)
+        subject = params_mod.get_subject(cheetah)
+        markers = syn.fk_markers_np(q_gt, subject)
+        scene = syn.ring_cameras(markers.mean(axis=(0, 1)), n_cams=n_cams,
+                                 fps=200.0, distance=6.0, fisheye=False,
+                                 seed=seed + i)
+        tr = syn.synthesize(q_gt, subject, scene, noise_px=2.0,
+                            outlier_frac=0.01, seed=seed + i,
+                            subject_name=cheetah)
+        syn.write_trial_dir(tr, root_dir, data_path, monocular_cam=0,
                             ground_plane_height=contacts_mod.
                             estimate_ground_height(q_gt, subject))
         with open(os.path.join(root_dir, data_path, "synthetic_gt.pickle"),
@@ -143,16 +194,7 @@ def run_monocular(root_dir: str, dir_prefix: str,
 
     def timed(mode, path, fn):
         """Run ``fn(trial_report)``, recording its wall and launches."""
-        before = dict(cuda_banded.launches_by_shape)
-        tr: dict = {}
-        t0 = time.time()
-        out = fn(tr)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        tr["wall_s"] = time.time() - t0
-        tr["launches"] = {k: v - before.get(k, 0) for k, v in
-                          cuda_banded.launches_by_shape.items()
-                          if v != before.get(k, 0)}
+        out, tr = _timed(dev, fn)
         m = rep.setdefault(mode, {"trials": [], "per_trial": {}})
         m["trials"].append(path)
         m["per_trial"][path] = tr
@@ -192,6 +234,23 @@ def run_monocular(root_dir: str, dir_prefix: str,
     print(f"Run through all videos took {time.time() - t_start:.2f}s")
 
 
+def _timed(dev: torch.device, fn):
+    """Run ``fn(report)`` with a fresh report dict; returns (what ``fn``
+    returned, the report with the wall seconds, synced on the card, and
+    the kernel's launches per (B, N) made meanwhile added)."""
+    before = dict(cuda_banded.launches_by_shape)
+    tr: dict = {}
+    t0 = time.time()
+    out = fn(tr)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    tr["wall_s"] = time.time() - t0
+    tr["launches"] = {k: v - before.get(k, 0) for k, v in
+                      cuda_banded.launches_by_shape.items()
+                      if v != before.get(k, 0)}
+    return out, tr
+
+
 def _physics_attempts(trial, data_path: str, tr: dict, kw: dict) -> bool:
     """The physics-based mode of one trial: ``PHYSICS_ATTEMPTS`` in order
     until one is acceptable; each attempt's outcome into ``tr``."""
@@ -216,6 +275,125 @@ def _physics_attempts(trial, data_path: str, tr: dict, kw: dict) -> bool:
     print(f"physics-based FAILED for {data_path} (no acceptable solution "
           "in any configuration)")
     return False
+
+
+def run_kinetic(root_dir: str, dir_prefix: str,
+                kinetic_set: Tuple = KINETIC_SET, verbose: bool = True,
+                dtype: torch.dtype = torch.float32,
+                device: DeviceLike = None,
+                report: Optional[dict] = None) -> None:
+    """The force-plate pipeline over the trials of ``kinetic_set`` found
+    under ``root_dir``, each trial alone at its own length on ``device``
+    (the card by default), artifacts under ``dir_prefix``:
+
+    * kinematic: ``estimate_kinematics`` on all cameras (pinhole, 200 fps,
+      the kinetic dataset's weights, joint limits and camera multipliers);
+    * kinetic: contact detection and GRF synthesis on that solution, then
+      ``estimate_kinetics`` with the GRFs fixed to the synthesized
+      profiles (the JAX call also passes ``joint_estimation=False`` and
+      ``ground_constraint=True``, neither of which changes its solve; the
+      port's function takes neither);
+    * grf: ``estimate_grf``, the GRFs re-solved with the torques anchored
+      to the kinetic solution's.
+
+    A stage whose solution is not finite ends the trial. With a ``report``
+    dict, per stage: the trials, and per trial the wall seconds, the
+    kernel's launches per (B, N), whether the stage succeeded, and for the
+    kinetic and grf stages the pruned stance and the solved torques and
+    GRFs."""
+    dev = resolve_device(device)
+    rep = {} if report is None else report
+    t0 = time.time()
+    kw = dict(out_dir_prefix=dir_prefix, solver_output=verbose, dtype=dtype,
+              device=dev)
+    for cheetah, date, trial in kinetic_set:
+        data_path = kinetic_path(cheetah, date, trial)
+        if not os.path.isdir(os.path.join(root_dir, data_path)):
+            print(f"skip missing {data_path}")
+            continue
+        est_of = lambda kinematic_model: est_mod.init_trajectory(
+            root_dir, data_path, cheetah, kinetic_dataset=True,
+            kinematic_model=kinematic_model)
+
+        def kinematic(tr):
+            est = est_of(True)
+            return est_mod.estimate_kinematics(est, **kw), est
+
+        def kinetic(tr):
+            est = est_of(False)
+            est_mod.determine_contacts(est, out_dir_prefix=dir_prefix)
+            return est_mod.estimate_kinetics(est, synthesised_grf=True,
+                                             report=tr, **kw), est
+
+        def grf(tr):
+            est = est_of(False)
+            return est_mod.estimate_grf(est, report=tr, **kw), est
+
+        for stage, fn in (("kinematic", kinematic), ("kinetic", kinetic),
+                          ("grf", grf)):
+            (ok, est), tr = _timed(dev, fn)
+            tr["ok"] = ok
+            if est.tau is not None:
+                tr.update(tau=est.tau, grf_z=est.grf_z, grf_xy=est.grf_xy)
+            r = rep.setdefault(stage, {"trials": [], "per_trial": {}})
+            r["trials"].append(data_path)
+            r["per_trial"][data_path] = tr
+            if not ok:
+                break
+    print(f"Run through all videos took {time.time() - t0:.2f}s")
+
+
+def kinetic_analysis(root_dir: str, dir_prefix: str,
+                     kinetic_set: Tuple = KINETIC_SET,
+                     device: DeviceLike = None,
+                     report: Optional[dict] = None) -> Dict:
+    """Biomechanics analysis of the force-plate trials whose physics
+    solution ``fte_kinetic`` exists under ``dir_prefix``: each trial's
+    stance-normalised gait curves (``results.gait_analysis`` at 200 fps,
+    on ``grf/autogen-contact.json``, else the trial's metadata), its
+    torque plot ``torques.pdf`` and gait plot ``gait.pdf`` beside the
+    stage directories, and, where the trial has hand labels
+    (``dlc_hand_labeled``), the reprojection error of the physics solution
+    against them. Where matplotlib is not installed, a line names each
+    plot skipped. Returns {trial: reprojection statistics}; with
+    ``report``, per trial the gait analysis and the plots written and
+    skipped."""
+    from ..dynamics.eom import tau_from_dict
+    from . import results as results_mod
+
+    dev = resolve_device(device)
+    out = {}
+    for cheetah, date, trial in kinetic_set:
+        data_path = kinetic_path(cheetah, date, trial)
+        base = os.path.join(dir_prefix, data_path)
+        fte_p = os.path.join(base, "fte_kinetic", "fte.pickle")
+        if not os.path.exists(fte_p):
+            continue
+        d = dio.load_fte_pickle(fte_p)
+        cj_path = os.path.join(base, "grf", "autogen-contact.json")
+        meta_path = os.path.join(root_dir, data_path, "metadata.json")
+        contact_path = cj_path if os.path.exists(cj_path) else meta_path
+        tau = tau_from_dict(d["tau"], d["q"].shape[0])
+        ga = results_mod.gait_analysis(d["q"], tau, contact_path, fps=200.0,
+                                       device=dev)
+        plots = {"written": [], "skipped": []}
+        for name, draw in (
+                ("torques.pdf", lambda p: results_mod.plot_torques(
+                    tau, 200.0, p)),
+                ("gait.pdf", lambda p: results_mod.plot_gait_attributes(
+                    ga, p))):
+            path = os.path.join(base, name)
+            plots["written" if draw(path) else "skipped"].append(path)
+        if plots["skipped"]:
+            print("matplotlib is not installed: skipped "
+                  + ", ".join(plots["skipped"]))
+        hand_dir = os.path.join(root_dir, data_path, "dlc_hand_labeled")
+        if os.path.isdir(hand_dir):
+            out[data_path] = results_mod.reprojection_errors(
+                os.path.join(base, "fte_kinetic"), hand_dir)
+        if report is not None:
+            report[data_path] = {"gait": ga, "plots": plots}
+    return out
 
 
 MODE_DIRS = (("default", "fte_kinematic_orig_{cam}"),
@@ -298,13 +476,16 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
     """The CLI. ``report`` (Python callers only) collects each mode's
     decisions, walls and kernel launches (:func:`run_monocular`, or
     ``batched.run_monocular_batched`` with ``--batched``) and the results
-    table; it is also returned."""
+    table; with ``--run_kinetic``, each force-plate stage's (``kinetic``,
+    :func:`run_kinetic`), the analysis per trial (``kinetic_analysis``) and
+    its returned dict (``kinetic_results``). It is also returned."""
     parser = argparse.ArgumentParser(
         description="cheetah reconstruction over a dataset of trials "
                     "(PyTorch port)")
     parser.add_argument("--root_dir", type=str, default="./cheetah_videos")
     parser.add_argument("--out_dir_prefix", type=str, default="./out")
     parser.add_argument("--run_monocular", action="store_true")
+    parser.add_argument("--run_kinetic", action="store_true")
     parser.add_argument("--override_default_cam", action="store_true")
     parser.add_argument("--clean", action="store_true",
                         help="regenerate reconstructions before analysis")
@@ -351,6 +532,19 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
                                    test_set, cam_overrides)
         if report is not None:
             report["results"] = res
+    if args.run_kinetic:
+        if args.clean:
+            rep = report if report is not None else {}
+            run_kinetic(args.root_dir, args.out_dir_prefix,
+                        device=args.device,
+                        report=rep.setdefault("kinetic", {}))
+        analysis = {} if report is None else report.setdefault(
+            "kinetic_analysis", {})
+        res = kinetic_analysis(args.root_dir, args.out_dir_prefix,
+                               device=args.device, report=analysis)
+        print(res)
+        if report is not None:
+            report["kinetic_results"] = res
     return report
 
 

@@ -230,6 +230,39 @@ def acc_banded(h: torch.Tensor, acc_weight: torch.Tensor,
     return banded.BlockBanded(diag=diag, lower=lower)
 
 
+def _diff_T(e: torch.Tensor) -> torch.Tensor:
+    """Adjoint of the forward difference along frames: (B, M, d) ->
+    (B, M + 1, d), out[s] = e[s - 1] - e[s] (zero outside 0..M-1)."""
+    p = torch.nn.functional.pad(e, (0, 0, 1, 1))
+    return p[:, :-1] - p[:, 1:]
+
+
+def acc_gradient(q: torch.Tensor, h: torch.Tensor, acc_weight: torch.Tensor,
+                 frame_valid: torch.Tensor) -> torch.Tensor:
+    """(B, N, 54) gradient of :func:`acc_cost`, D^T W (D q) with D the
+    third difference, taken as nested first differences.
+
+    It equals ``banded.matvec(acc_banded(...), q)`` (the JAX package's
+    form), but that product cancels terms of ~1e8 (1/h^4 at 200 fps is
+    1.6e9) down to entries of ~1e4, so in float32 its error is ~1e2 and
+    the LM steps follow noise (ROADMAP Queue 3 #2, #14). A difference of
+    two values within a factor 2 of each other is exact (Sterbenz), as a
+    smooth trajectory's neighbouring frames mostly are, so the rounding
+    left is mostly that of the weights. In float64 the two forms agree to
+    ~1e-11 of the gradient's largest entry."""
+    if q.shape[1] <= 3:
+        return torch.zeros_like(q)
+    d = q
+    for _ in range(3):
+        d = d[:, 1:] - d[:, :-1]
+    h2 = h[:, None, None] * h[:, None, None]
+    fv = frame_valid
+    rv = (fv[:, 3:] * fv[:, 2:-1] * fv[:, 1:-2] * fv[:, :-3])[..., None]
+    e = 2.0 * rv * acc_weight[:, None, :] * d / (h2 * h2)
+    # d[t] = q[t+3] - 3 q[t+2] + 3 q[t+1] - q[t]: the residual of acc_cost
+    return _diff_T(_diff_T(_diff_T(e)))
+
+
 def acc_cost(q: torch.Tensor, h: torch.Tensor, acc_weight: torch.Tensor,
              frame_valid: torch.Tensor) -> torch.Tensor:
     """(B,) constant-acceleration cost."""
@@ -524,6 +557,21 @@ class KinematicFTE:
             frame_valid[..., None] * viol * viol).sum((1, 2))
 
     # -- normal equations ----------------------------------------------------
+    def acc_gradient(self, q: torch.Tensor, data: KinematicData,
+                     H_acc: banded.BlockBanded) -> torch.Tensor:
+        """(B, N, 54) gradient of the constant-acceleration term, whose
+        Hessian is ``H_acc``. The force-plate configuration
+        (``kinetic_dataset``, 200 fps) takes it by differences
+        (:func:`acc_gradient`): with the JAX package's product its float32
+        solves stop 25-35 % MPJPE short of the float64 answer, and its
+        gate is float64. The other configurations keep the product: their
+        gates hold float32 runs to the JAX package's float32 runs, from
+        which the differences move the chaotic monocular modes by several
+        per cent (ROADMAP Queue 3 #2)."""
+        if self.config.kinetic_dataset:
+            return acc_gradient(q, data.h, data.acc_weight, data.frame_valid)
+        return banded.matvec(H_acc, q)
+
     def _normal(self, q: torch.Tensor, data: KinematicData, loss_scale=1.0
                 ) -> Tuple[torch.Tensor, banded.BlockBanded]:
         """Gradient (B, N, 54) and block-banded GN curvature of the cost."""
@@ -553,7 +601,7 @@ class KinematicFTE:
 
         # constant-acceleration banded quadratic (linear -> exact)
         H_acc = acc_banded(data.h, data.acc_weight, data.frame_valid)
-        g = g + banded.matvec(H_acc, q)
+        g = g + self.acc_gradient(q, data, H_acc)
         Hdiag = Hdiag + H_acc.diag
 
         if cfg.use_gmm:

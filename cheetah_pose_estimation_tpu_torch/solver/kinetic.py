@@ -580,7 +580,7 @@ class KineticFTE:
             # the kinematic constant-acceleration quadratic is not part of
             # the kinetic objective
             H_acc = kin.acc_banded(base.h, base.acc_weight, base.frame_valid)
-            g = g_base - banded.matvec(H_acc, q)
+            g = g_base - self._kin.acc_gradient(q, base, H_acc)
             Hdiag = H_base.diag - H_acc.diag
             Hlower = H_base.lower - H_acc.lower
 

@@ -24,17 +24,17 @@ Phases (any failure exits nonzero):
    kernel, plain and library times and bound at every shape the dataset
    CLI launches: the batched path's 6x64, 4x64, 18x64, 12x64, 42x64, 28x64
    and the serial path's 3xN, 1xN, 7xN for its three trials' N = 40, 42,
-   44.
+   44, and the force-plate pipeline's 1x50.
 4. main    — stage 1 of the bench: 10 procedural monocular problems padded
    to 64 frames, ``make_kinematic_multistart`` once (warm-up, with the
-   kernel's launch count) and 3 timed repeats; one more run with the probe
+   kernel's launch count) and 1 timed repeat; one more run with the probe
    and the finish timed apart; per-trial MPE, MPJPE and CoM-velocity RMSE.
 5. agree   — the same problems with ``linear_solver="scan"``, and the JAX
    package's float32 stage-1 numbers (``tests/data/jax_stage1_f32.json``):
    mean MPJPE within 2 % of both.
 6. profile — one more stage-1 run under torch.profiler: device time, the
    kernel's share of it, and the device's busy share of the unprofiled
-   stage-1 wall (phase 4's repeats).
+   stage-1 wall (phase 4's repeat).
 7. dd      — stage 1.5 of the bench, the data-driven mode. Priors: the
    procedural pose tables, the port's priors trained on the card (set-up,
    timed), held against the JAX-trained priors of
@@ -42,7 +42,7 @@ Phases (any failure exits nonzero):
    0.5 nats per sample, AR predictions on its windows within 1e-6). Main
    path: phase 4's stage-1 result through ``run_data_driven`` with the
    port's priors, once (warm-up, with the kernel's launches per shape, both
-   > 0, and each phase timed) and 2 timed repeats; per-trial MPE, MPJPE,
+   > 0, and each phase timed) and 1 timed repeat; per-trial MPE, MPJPE,
    CoM-velocity, ``prior_ok`` and shifts. Agreement: ``run_data_driven`` from JAX's
    float32 stage-1 trajectories with the JAX-trained priors (both from the
    npz), mean MPJPE within 2 % of the JAX float64 dd run from the same
@@ -58,7 +58,7 @@ Phases (any failure exits nonzero):
    Jacobi-scaled as ``gn.scaled_system`` does at lam = 10 and 1e-2),
    relative error <= 7e-4, and the peak device memory of the frozen EOM
    curvature blocks. Main path: ``run_physics`` once (warm-up, the kernel's
-   launches at 10x64 > 0) and 2 timed repeats, host prep, curvature blocks
+   launches at 10x64 > 0) and 1 timed repeat, host prep, curvature blocks
    and LM loop timed apart; per-trial MPE, MPJPE, CoM-velocity, accepted
    steps, RMS torque and peak GRFz, and bench's ``ok`` (finite, mean MPE
    and CoM-velocity < 1.02x the warm start's). Agreement: ``run_physics``
@@ -107,13 +107,34 @@ Phases (any failure exits nonzero):
    the accepted physics attempt), MPE, MPJPE, CoM-velocity RMSE and
    objective. Agreement with the JAX package's serial float32 run on the
    same input (``tests/data/jax_serial_f32.json``, ``port_tree``): the
-   means held as in phase 9 (a line-scan-moved trial's objective compared
-   with the JAX objective under the re-polish's data), the same accepted
+   means held as in phase 9 (the saved objectives compared directly: both
+   packages save it under the data before a line-scan shift), the same accepted
    physics attempt on every trial, every JAX artifact present with its
    keys and shapes; the JAX run on its own tree printed beside. Then the
    batched path on the same three trials (its s/trial beside the serial
    path's), and one trial's 1-lane ground-truth solve and 3-lane default
    multistart under torch.profiler (the card's idle share).
+11. kinetic — the force-plate pipeline (``run_dataset.main --run_kinetic
+   --clean``) on the synthetic kinetic test set (5 trials of 50 frames, 4
+   pinhole cameras at 200 fps), its tree's digest held against the JAX
+   trees' (``tests/data/jax_kinetic_f32.json``): per stage (kinematic,
+   kinetic with synthesized GRFs, GRF re-estimation with the torque anchor)
+   s/trial, LM steps and launches per shape (each stage of each trial > 0,
+   only 1x50); per trial MPJPE and MPE against the synthetic truth,
+   CoM-velocity RMSE, the pruned stance, RMS torque, peak GRFz,
+   ``check_grf`` and the saved objective; the static GRFs (GRFz over the
+   stance frames); the kernel against its plain version in float64 on the
+   4-camera pinhole and the torque-anchored kinetic normal systems (lam =
+   1e-2, rel error <= 7e-4); the plots written or skipped. Agreement with
+   the JAX float64 run on the same input: per stage mean MPJPE within 2 %
+   and mean CoM-velocity within 5 % of it either way (``kinetic_gate``);
+   the same pruned stances, the port's
+   static GRF solver on the JAX run's trajectories within 1e-3 body weights
+   frame by frame, every JAX artifact present with its keys and shapes,
+   nothing set aside; the JAX float32 runs and JAX's own MPE bars printed
+   beside. Then a 20-step window of one trial's 1-lane kinetic solve (the
+   GRF re-estimation) under torch.profiler (device events per LM step, the
+   card's idle share).
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -121,6 +142,7 @@ then the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -148,6 +170,8 @@ SERIAL_TRIALS = 3
 CLI_SHAPES = ((6, 64), (4, 64), (18, 64), (12, 64), (42, 64), (28, 64))
 SERIAL_SHAPES = tuple((b, 40 + 2 * i) for i in range(SERIAL_TRIALS)
                       for b in (3, 1, 7))
+# the force-plate pipeline: every solve one trial of 50 frames
+KINETIC_SHAPES = ((1, 50),)
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -379,7 +403,8 @@ def phase_kernel(dev, results):
 
 def kernel_cli_shapes(dev):
     """The kernel at the dataset CLI's shapes (``CLI_SHAPES``,
-    ``SERIAL_SHAPES``) on random SPD systems: its error against the plain
+    ``SERIAL_SHAPES``, ``KINETIC_SHAPES``) on random SPD systems: its
+    error against the plain
     version in float64 (<= 7e-4), its time (CUDA events, 20 launches after
     3 warm-ups) beside the plain float32 version's, the one-call library
     time (dense ``torch.linalg.solve``) and the bound."""
@@ -387,7 +412,8 @@ def kernel_cli_shapes(dev):
 
     rows = []
     for path, shapes in (("batched CLI", CLI_SHAPES),
-                         ("serial CLI", SERIAL_SHAPES)):
+                         ("serial CLI", SERIAL_SHAPES),
+                         ("kinetic CLI", KINETIC_SHAPES)):
         for B, N in shapes:
             d32, l32, r32 = cuda_banded.random_systems(B, N, B * 1000 + N,
                                                        dev)
@@ -442,7 +468,7 @@ def phase_main(dev, results):
     if launches <= 0:
         raise AssertionError("the main path did not launch the kernel")
     times = []
-    for _ in range(3):
+    for _ in range(1):
         t0 = time.perf_counter()
         st = run(q0b, batched)
         torch.cuda.synchronize()
@@ -631,7 +657,7 @@ def phase_dd(dev, ctx, results):
         return q, ok, shifts
 
     # the warm-up run counts the kernel's launches and times each phase
-    # (synced); then 2 timed repeats (3 made the smoke too long)
+    # (synced); then 1 timed repeat (more made the smoke too long)
     phases = {}
     cuda_banded.reset_launches()
     t0 = time.perf_counter()
@@ -645,7 +671,7 @@ def phase_dd(dev, ctx, results):
         raise AssertionError(f"the dd stage did not launch the kernel at "
                              f"10x64 and 70x64: {by_shape}")
     times = []
-    for _ in range(2):
+    for _ in range(1):
         t0 = time.perf_counter()
         q, ok, shifts = run()
         times.append(time.perf_counter() - t0)
@@ -841,7 +867,7 @@ def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
         torch.cuda.synchronize()
         return st, kb
 
-    # the warm-up run counts the kernel's launches; then 2 timed repeats
+    # the warm-up run counts the kernel's launches; then 1 timed repeat
     cuda_banded.reset_launches()
     phases = {}
     t0 = time.perf_counter()
@@ -854,7 +880,7 @@ def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
         raise AssertionError(f"the physics stage did not launch the kernel "
                              f"at {B}x{q_dd.shape[1]}: {by_shape}")
     times, phase_runs = [], []
-    for _ in range(2):
+    for _ in range(1):
         phases = {}
         t0 = time.perf_counter()
         st, kb = run(q_dd, gmm_prior, phases)
@@ -939,6 +965,29 @@ def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
     out["profile"] = prof
     return by_shape, worst_rel, worst_abs
 
+
+
+@contextlib.contextmanager
+def plain_solves_counted():
+    """Count the calls of the plain banded solvers (scan, CR) made inside
+    the block, into the yielded dict: none may run on the card's path."""
+    from cheetah_pose_estimation_tpu_torch.ops import banded
+
+    plain = {"scan": 0, "cr": 0}
+    saved = banded.solve, banded.cr_solve
+
+    def counted(name, fn):
+        def run(*a, **k):
+            plain[name] += 1
+            return fn(*a, **k)
+        return run
+
+    banded.solve, banded.cr_solve = counted("scan", saved[0]), \
+        counted("cr", saved[1])
+    try:
+        yield plain
+    finally:
+        banded.solve, banded.cr_solve = saved
 
 
 # -- phase 9: the dataset CLI ------------------------------------------------
@@ -1261,7 +1310,7 @@ def phase_cli(dev, results, ref):
     import tempfile
 
     from cheetah_pose_estimation_tpu_torch.data import io as dio
-    from cheetah_pose_estimation_tpu_torch.ops import banded, cuda_banded
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
     from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
     from cheetah_pose_estimation_tpu_torch.pipeline import batched as pb
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
@@ -1317,27 +1366,14 @@ def phase_cli(dev, results, ref):
     # 2. the main path: the four modes through the CLI's main, with the
     # plain banded solvers counted (none may run on the card path)
     os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
-    plain = {"scan": 0, "cr": 0}
-    saved = banded.solve, banded.cr_solve
-
-    def counted(name, fn):
-        def run(*a, **k):
-            plain[name] += 1
-            return fn(*a, **k)
-        return run
-
-    banded.solve, banded.cr_solve = counted("scan", saved[0]), \
-        counted("cr", saved[1])
     cuda_banded.reset_launches()
     report = {}
     t0 = time.perf_counter()
-    try:
+    with plain_solves_counted() as plain:
         run_dataset.main(["--run_monocular", "--batched", "--clean",
                           "--root_dir", root, "--out_dir_prefix", odir],
                          report=report)
         torch.cuda.synchronize()
-    finally:
-        banded.solve, banded.cr_solve = saved
     out["cli_s"] = time.perf_counter() - t0
     by_shape = dict(cuda_banded.launches_by_shape)
     out["plain_solves"] = plain
@@ -1476,9 +1512,8 @@ def phase_serial(dev, results, ref, root, dset):
     physics-based mode in up to three attempts. Held against the JAX
     package's serial float32 run on the same input
     (``tests/data/jax_serial_f32.json``, ``port_tree``): the means as phase
-    9 holds them (``agree_means``; in the data-driven mode a trial the
-    line-scan moved compares with the JAX objective under the re-polish's
-    data), each trial's accepted physics attempt equal to the JAX run's,
+    9 holds them (``agree_means``, on the saved objectives), each trial's
+    accepted physics attempt equal to the JAX run's,
     every JAX artifact present with its keys and shapes. Then the batched
     path on the same trials (s/trial), and one trial's ground-truth solve
     (one lane) and default solve (the 3-lane multistart, the 1-lane polish)
@@ -1486,7 +1521,7 @@ def phase_serial(dev, results, ref, root, dset):
     import tempfile
 
     from cheetah_pose_estimation_tpu_torch.data import io as dio
-    from cheetah_pose_estimation_tpu_torch.ops import banded, cuda_banded
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
     from cheetah_pose_estimation_tpu_torch.pipeline import estimator
     from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
 
@@ -1504,27 +1539,14 @@ def phase_serial(dev, results, ref, root, dset):
 
     # the main path, with the plain banded solvers counted (none may run)
     os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
-    plain = {"scan": 0, "cr": 0}
-    saved = banded.solve, banded.cr_solve
-
-    def counted(name, fn):
-        def run(*a, **k):
-            plain[name] += 1
-            return fn(*a, **k)
-        return run
-
-    banded.solve, banded.cr_solve = counted("scan", saved[0]), \
-        counted("cr", saved[1])
     cuda_banded.reset_launches()
     report = {}
     t0 = time.perf_counter()
-    try:
+    with plain_solves_counted() as plain:
         run_dataset.main(["--run_monocular", "--clean", "--trials",
                           str(len(paths)), "--root_dir", root,
                           "--out_dir_prefix", odir], report=report)
         torch.cuda.synchronize()
-    finally:
-        banded.solve, banded.cr_solve = saved
     out["cli_s"] = time.perf_counter() - t0
     by_shape = dict(cuda_banded.launches_by_shape)
     out["plain_solves"] = plain
@@ -1567,9 +1589,7 @@ def phase_serial(dev, results, ref, root, dset):
                        for p in paths]
         a = {}
         for m in CLI_MODES:
-            jax_obj = [dec.get(m, {}).get(p, {}).get(
-                "obj_cost_repolish", r["modes"][m][p]["obj_cost"])
-                for p in paths]
+            jax_obj = [r["modes"][m][p]["obj_cost"] for p in paths]
             a[m] = agree_means(
                 m, modes[m]["per_trial"], r["modes"][m], paths,
                 stance_same if m == "physics-based" else [True] * len(paths),
@@ -1651,6 +1671,434 @@ def phase_serial(dev, results, ref, root, dset):
         out[f"profile_{m}"] = prof
     results["serial"] = out
     return by_shape
+
+
+# -- phase 11: the force-plate pipeline --------------------------------------
+
+KINETIC_STAGE_DIRS = (("kinematic", "fte_kinematic"),
+                      ("kinetic", "fte_kinetic"), ("grf", "fte_grf"))
+TOL_STATIC_GRF = 1e-3    # body weights, frame by frame, same trajectory
+# JAX's own sanity bars on one force-plate trial's MPE against the truth
+# (tests/test_kinetic_dataset.py), printed beside the port's
+JAX_MPE_BARS = {"kinematic": 20.0, "kinetic": 40.0}
+PROFILE_STEPS = 20       # the profiled window of a 1-lane kinetic solve
+
+
+# How a force-plate run is scored, the same for both packages:
+# tests/data/jax_kinetic_reference.py imports these.
+
+def truth_com_vel(root, path, fps=200.0):
+    """The synthetic truth's CoM velocity (N - 1, 3) of trial ``path``
+    (the port's skeleton in float64 on the CPU)."""
+    import pickle
+
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.models import skeleton as sk
+
+    with open(os.path.join(root, path, "synthetic_gt.pickle"), "rb") as f:
+        q = np.asarray(pickle.load(f)["q"], np.float64)
+    subject = params.get_subject(path.split(os.sep)[-2])
+    com = sk.com_position(torch.as_tensor(q), subject).numpy()
+    return (com[1:] - com[:-1]) * fps
+
+
+def kinetic_scores(root, odir, path, com_vel_true):
+    """Per stage of the force-plate pipeline, trial ``path``'s saved
+    solution against the synthetic truth: MPJPE (frame-centred) and MPE in
+    mm, CoM-velocity RMSE in m/s (``com_vel_true``: ``truth_com_vel``), the
+    saved objective, RMS torque (body-weight units), the mean and largest
+    |q| entry."""
+    import pickle
+
+    with open(os.path.join(root, path, "synthetic_gt.pickle"), "rb") as f:
+        true = np.asarray(pickle.load(f)["positions"], np.float64)
+    out = {}
+    for stage, sub in KINETIC_STAGE_DIRS:
+        p = os.path.join(odir, path, sub, "fte.pickle")
+        if not os.path.exists(p):
+            continue
+        with open(p, "rb") as f:
+            d = pickle.load(f)
+        pos = np.asarray(d["positions"], np.float64)
+        err = (pos - pos.mean(1, keepdims=True)) \
+            - (true - true.mean(1, keepdims=True))
+        dv = np.asarray(d["com_vel"], np.float64) - com_vel_true
+        tau = np.concatenate([np.asarray(v, np.float64).reshape(len(pos), -1)
+                              for _, v in sorted(d["tau"].items())], 1) \
+            if d["tau"] else np.zeros((len(pos), 0))
+        q = np.asarray(d["q"], np.float64)
+        out[stage] = {
+            "mpjpe": float(np.linalg.norm(err, axis=2).mean() * 1e3),
+            "mpe": float(np.linalg.norm(pos - true, axis=2).mean() * 1e3),
+            "com_vel_rmse": float(np.sqrt(np.mean(dv ** 2))),
+            "obj_cost": float(d["obj_cost"]),
+            "rms_torque": float(np.sqrt(np.mean(tau ** 2)))
+            if tau.size else 0.0,
+            "q_mean_abs": float(np.abs(q).mean()),
+            "q_max_abs": float(np.abs(q).max())}
+    return out
+
+
+def grf_summary(grf_z, grf_xy, stance):
+    """Peak GRFz, the GRFz sum over the stance frames (body weights), and
+    the friction-polygon check (the port's ``results.check_grf``) of one
+    solution's GRFs."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import results
+
+    gz = np.asarray(grf_z, np.float64)
+    return {"peak_grf_z": float(gz.max()) if gz.size else 0.0,
+            "grf_z_stance_sum": float((gz * np.asarray(stance)).sum()),
+            "check_grf_invalid": results.check_grf(grf_xy)["n_invalid"]}
+
+
+def kinetic_gate(port, jax_f64, jax_f32, tol):
+    """Agreement of one per-stage mean of the port's float32 run with the
+    JAX float64 run on the same input: within ``tol`` of it, either way.
+    Every trial is in the mean. The JAX float32 run on the same input is
+    reported beside it and widens nothing."""
+    rel64 = (port - jax_f64) / jax_f64
+    return {"port": port, "jax_f64": jax_f64, "jax_f32": jax_f32,
+            "rel_f64": rel64, "rel_f32": (port - jax_f32) / jax_f32,
+            "jax_f32_vs_f64": (jax_f32 - jax_f64) / jax_f64,
+            "ok": abs(rel64) <= tol, "tol": tol}
+
+
+def kinetic_kernel_check(dev, root, odir, paths):
+    """The kernel against its plain version in float64 on each trial's
+    4-camera pinhole normal systems at its saved kinematic solution and on
+    its torque-anchored kinetic normal systems at the GRF re-estimation's
+    warm start (``estimator.grf_problem``), damped at lam = 1e-2 and
+    scaled as ``gn.scaled_system`` does. Returns the rows."""
+    import pickle
+
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
+    from cheetah_pose_estimation_tpu_torch.pipeline import estimator
+    from cheetah_pose_estimation_tpu_torch.solver import gn
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+
+    lam = torch.full((1,), 1e-2, device=dev)
+    rows = []
+    for p in paths:
+        est = estimator.init_trajectory(root, p, p.split(os.sep)[-2],
+                                        kinetic_dataset=True)
+        with open(os.path.join(odir, p, "fte_kinematic", "fte.pickle"),
+                  "rb") as f:
+            q = pickle.load(f)["q"]
+        batched, qb = pbatch.pad_and_stack([est.data], [q], device=dev)
+        fte = kin.KinematicFTE(kin.KinematicConfig(
+            fisheye=False, kinetic_dataset=True,
+            cam_multipliers=(1.0, 1.0, 0.6, 0.6)), est.subject)
+        g, H = fte._normal(qb, batched, 1.0)
+        systems = [("pinhole 4 cameras", gn.scaled_system(g, H, lam, 1e-8))]
+        kfte, kd, q_warm, _ = estimator.grf_problem(est, odir)
+        kbat, qw = pbatch.pad_and_stack_kinetic([kd], [q_warm], device=dev)
+        g, H = kfte._normal(qw, kbat, 1.0,
+                            eom_blocks=kfte.eom_curvature_blocks(qw, kbat))
+        b = kbat.base
+        floor = torch.clamp(torch.diagonal(kin.acc_banded(
+            b.h, b.acc_weight, b.frame_valid).diag, dim1=-2, dim2=-1),
+            min=1e-8)
+        systems.append(("torque-anchored kinetic",
+                        gn.scaled_system(g, H, lam, floor)))
+        for kind, (Hs, rhs, _) in systems:
+            d32, l32, r32 = (x.contiguous() for x in (Hs.diag, Hs.lower,
+                                                      rhs))
+            x = cuda_banded.solve(d32, l32, r32)
+            torch.cuda.synchronize()
+            ref = cuda_banded.solve_reference(d32.double(), l32.double(),
+                                              r32.double())
+            abs_err = float((x.double() - ref).abs().max())
+            row = {"systems": kind, "trial": p, "B": 1, "N": d32.shape[1],
+                   "rel_err": abs_err / float(ref.abs().max()),
+                   "max_abs_err": abs_err}
+            log(f"# kinetic: kernel {row}")
+            if not (torch.isfinite(x).all() and torch.isfinite(ref).all()
+                    and row["rel_err"] <= TOL_REL):
+                raise AssertionError(f"kernel on the {kind} systems: {row}")
+            rows.append(row)
+    return rows
+
+
+def static_grf_same_input(dev, root, ref):
+    """The port's static GRF solver on the card in float64, on the JAX
+    float64 run's saved kinematic trajectories with the JAX run's stances
+    (pruned, and the contact files' own), against the JAX run's static
+    GRFs: the largest difference per trial in body weights."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import estimator
+    from cheetah_pose_estimation_tpu_torch.solver import static_grf
+
+    out = {}
+    for p, q in ref["kinematic_q"].items():
+        est = estimator.init_trajectory(root, p, p.split(os.sep)[-2],
+                                        kinetic_dataset=True)
+        est.q = np.asarray(q, np.float64)
+        T = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                      device=dev)
+        r = ref["static_grf"][p]
+        diff = {}
+        for sfx in ("", "_contacts"):
+            gz, gxy = static_grf.estimate_static_grf(
+                T(est.q), *(T(a) for a in est.derivatives()),
+                T(r["stance" + sfx]), est.subject)
+            diff["stance" + sfx] = max(
+                float(np.abs(gz.cpu().numpy() - r["grf_z" + sfx]).max()),
+                float(np.abs(gxy.cpu().numpy() - r["grf_xy" + sfx]).max()))
+            diff["grf_z_sum" + sfx] = float(gz.sum())
+        out[p] = diff
+    return out
+
+
+def phase_kinetic(dev, results, ref):
+    """The force-plate pipeline (``run_dataset.main --run_kinetic --clean``)
+    on the synthetic kinetic test set: render the tree and hold its digest
+    against the JAX trees' (``tests/data/jax_kinetic_f32.json``), run the
+    CLI (each stage of each trial launching the kernel at 1x50), score
+    every stage against the truth, solve the static GRFs, check the kernel
+    on the pinhole and torque-anchored kinetic systems, hold the results
+    against the JAX float64 run on the same input (per stage mean MPJPE
+    within 2 % and mean CoM-velocity within 5 %: ``kinetic_gate``; the
+    same pruned stances, the static GRFs within 1e-3 body weights on the
+    same trajectories, every JAX artifact present with its keys and
+    shapes, nothing set aside), print the JAX float32 runs beside it, and
+    profile a window of one trial's 1-lane kinetic solve. Returns (the
+    launches per shape of the CLI run, worst rel err, worst abs err)."""
+    import tempfile
+
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.parallel import batch as pbatch
+    from cheetah_pose_estimation_tpu_torch.pipeline import estimator
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="kinetic_")
+    root, odir = os.path.join(work, "videos"), os.path.join(work, "out")
+    paths = ref["trials"]
+
+    # 1. the tree, held against the JAX rendering and the reference's input
+    t0 = time.perf_counter()
+    made = run_dataset.materialize_synthetic_kinetic_testset(root)
+    out["render_s"] = time.perf_counter() - t0
+    if made != paths:
+        raise AssertionError(f"rendered {made}, the reference has {paths}")
+    tree_ok = True
+    for p in paths:
+        xy, lik, _ = dio.load_dlc_points(os.path.join(root, p, "dlc"))
+        dg = digest(xy, lik)
+        gph = dio.load_metadata(os.path.join(root, p))["ground_plane_height"]
+        checks = []
+        for r, tol, tol_g in ((ref["tree"][p], TOL_PX, 1e-6),
+                              (ref["port_tree"][p], TOL_PX_SAME, 1e-12)):
+            dpx = max(abs(a - b) for a, b in zip(dg["px_proj"],
+                                                 r["px_proj"]))
+            checks.append((dpx, dg["gate_md5"] == r["gate_md5"]
+                           and dg["n_gated"] == r["n_gated"] and dpx <= tol
+                           and abs(gph - r["ground_plane_height"]) <= tol_g))
+        tree_ok &= all(ok for _, ok in checks)
+        log(f"# kinetic: tree {p} {dg['shape']} gated {dg['n_gated']} md5 "
+            f"{dg['gate_md5'][:8]}: JAX tree |px proj diff| "
+            f"{checks[0][0]:.2e} ({'same' if checks[0][1] else 'DIFFERENT'})"
+            f", the reference run's input {checks[1][0]:.2e} "
+            f"({'same' if checks[1][1] else 'DIFFERENT'})")
+    log(f"# kinetic: tree rendered in {out['render_s']:.2f} s (host)")
+    if not tree_ok:
+        raise AssertionError("the kinetic tree differs from the JAX tree or "
+                             "from the reference run's input")
+
+    # 2. the main path: the three stages of every trial through the CLI
+    cuda_banded.reset_launches()
+    report = {}
+    t0 = time.perf_counter()
+    with plain_solves_counted() as plain:
+        run_dataset.main(["--run_kinetic", "--clean", "--root_dir", root,
+                          "--out_dir_prefix", odir], report=report)
+        torch.cuda.synchronize()
+    out["cli_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    out["plain_solves"] = plain
+    log(f"# kinetic: run_dataset.main {out['cli_s']:.2f} s, kernel launches "
+        f"{shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        raise AssertionError(f"the kinetic CLI ran plain banded solves on "
+                             f"the card: {plain}")
+    untimed = sorted(set(by_shape) - set(KINETIC_SHAPES))
+    if untimed:
+        raise AssertionError(f"shapes not timed in phase 3: {untimed}")
+    scores = {p: kinetic_scores(root, odir, p, truth_com_vel(root, p))
+              for p in paths}
+    stages = {}
+    for stage, _ in KINETIC_STAGE_DIRS:
+        rep = report["kinetic"][stage]
+        if rep["trials"] != paths:
+            raise AssertionError(f"stage {stage} ran {rep['trials']}")
+        pt = [rep["per_trial"][p] for p in paths]
+        launches = {}
+        for t in pt:
+            if not (t["ok"] and sum(t["launches"].values())):
+                raise AssertionError(f"stage {stage} failed or did not "
+                                     f"launch the kernel: {t}")
+            for k, v in t["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        rows = []
+        for p, t in zip(paths, pt):
+            row = dict(scores[p][stage], wall_s=t["wall_s"],
+                       lm_steps=int(sum(t["launches"].values())))
+            if "stance" in t:
+                row.update(grf_summary(t["grf_z"], t["grf_xy"],
+                                       t["stance"]), stance=t["stance"])
+            rows.append(row)
+        stages[stage] = {"s_per_trial": float(np.mean([t["wall_s"]
+                                                        for t in pt])),
+                         "wall_s": [t["wall_s"] for t in pt],
+                         "lm_steps": int(sum(launches.values())),
+                         "launches_by_shape": shape_keys(launches),
+                         "per_trial": rows}
+        log(f"# kinetic: stage {stage}: {stages[stage]['s_per_trial']:.4f} "
+            f"s/trial (walls {[round(w, 3) for w in stages[stage]['wall_s']]}"
+            f" s), LM steps {stages[stage]['lm_steps']}, launches "
+            f"{stages[stage]['launches_by_shape']}")
+        for p, r in zip(paths, rows):
+            extra = "" if "stance" not in r else (
+                f", stance frames {int(np.sum(r['stance']))}, RMS torque "
+                f"{r['rms_torque']:.4f}, peak GRFz {r['peak_grf_z']:.4f} BW, "
+                f"check_grf invalid pairs {r['check_grf_invalid']}")
+            log(f"# kinetic: {stage} {p} MPJPE {r['mpjpe']:.2f} mm MPE "
+                f"{r['mpe']:.2f} mm CoM-vel {r['com_vel_rmse']:.4f} m/s "
+                f"objective {r['obj_cost']:.6g}, LM steps {r['lm_steps']}"
+                + extra)
+    out["stages"] = stages
+
+    # 3. the static GRFs: the port's pipeline on its own solution (float32)
+    # and the port's solver on the JAX float64 run's trajectories (float64)
+    static = {}
+    for p in paths:
+        est = estimator.init_trajectory(root, p, p.split(os.sep)[-2],
+                                        kinetic_dataset=True,
+                                        kinematic_model=False)
+        gz, _ = estimator.estimate_static_grf(est, out_dir_prefix=odir)
+        static[p] = {"grf_z_sum": float(gz.sum())}
+    same = static_grf_same_input(dev, root, ref["f64"])
+    for p in paths:
+        static[p]["same_input"] = same[p]
+        log(f"# kinetic: static GRF {p}: GRFz over the stance frames "
+            f"{static[p]['grf_z_sum']:.6f} BW (JAX f64 on its own solution "
+            f"{float(np.sum(ref['f64']['static_grf'][p]['grf_z'])):.6f}); "
+            f"on the JAX f64 trajectory: {same[p]}")
+    out["static_grf"] = static
+
+    # 4. the kernel on the new kinds of system (one trial: every trial's
+    # systems have the same shape and structure)
+    out["kernel"] = kinetic_kernel_check(dev, root, odir, paths[:1])
+    worst_rel = max(r["rel_err"] for r in out["kernel"])
+    worst_abs = max(r["max_abs_err"] for r in out["kernel"])
+
+    # 5. the analysis' plots
+    plots = {p: report["kinetic_analysis"][p]["plots"] for p in paths}
+    out["plots"] = plots
+    written = [x for v in plots.values() for x in v["written"]]
+    skipped = [x for v in plots.values() for x in v["skipped"]]
+    log(f"# kinetic: plots written {len(written)}, skipped {len(skipped)} "
+        f"{[os.path.basename(x) for x in skipped][:2]}")
+
+    # 6. agreement with the JAX float64 run on the same input; the JAX
+    # float32 runs beside it
+    bad, agree = [], {}
+    for stage, _ in KINETIC_STAGE_DIRS:
+        mine = stages[stage]["per_trial"]
+        a = {}
+        for key, tol in (("mpjpe", TOL_MPJPE), ("com_vel_rmse", TOL_COMVEL)):
+            port = float(np.mean([r[key] for r in mine]))
+            vals = {run: float(np.mean([ref[run]["stages"][stage][p][key]
+                                        for p in paths]))
+                    for run in ("f64", "f32", "f32_own") if run in ref}
+            a[key] = dict(kinetic_gate(port, vals["f64"], vals["f32"], tol),
+                          jax_f32_own_tree=vals.get("f32_own"))
+            if not a[key]["ok"]:
+                bad.append((stage, key, a[key]))
+            log(f"# kinetic agree: {stage} mean {key} port {port:.4f} jax_f64"
+                f" {vals['f64']:.4f} (rel {a[key]['rel_f64']:+.4f}, bar "
+                f"±{tol}: {'ok' if a[key]['ok'] else 'FAILED'}); printed "
+                f"only: jax_f32 {vals['f32']:.4f} (jax_f32 vs f64 "
+                f"{a[key]['jax_f32_vs_f64']:+.4f}, port vs jax_f32 "
+                f"{a[key]['rel_f32']:+.4f}), jax_f32 on its own tree "
+                f"{vals.get('f32_own', 'not recorded')}")
+        if stage != "kinematic":
+            same_st = [r["stance"] == ref["f64"]["stages"][stage][p]["stance"]
+                       for p, r in zip(paths, mine)]
+            a["stance_same"] = same_st
+            theirs = [int(np.sum(ref["f64"]["stages"][stage][p]["stance"]))
+                      for p in paths]
+            log(f"# kinetic agree: {stage} stance frames per trial port "
+                f"{[int(np.sum(r['stance'])) for r in mine]} jax_f64 "
+                f"{theirs} ({'same' if all(same_st) else 'DIFFERENT'})")
+            if not all(same_st):
+                bad.append((stage, "stance", same_st))
+        for p, r in zip(paths, mine):
+            j = ref["f64"]["stages"][stage][p]
+            log(f"# kinetic agree: {stage} {p} MPJPE port {r['mpjpe']:.2f} "
+                f"jax {j['mpjpe']:.2f}, CoM-vel port {r['com_vel_rmse']:.4f}"
+                f" jax {j['com_vel_rmse']:.4f}, objective port "
+                f"{r['obj_cost']:.6g} jax {j['obj_cost']:.6g}")
+        if stage in JAX_MPE_BARS:
+            jax_mpe = [round(ref["f64"]["stages"][stage][p]["mpe"], 2)
+                       for p in paths]
+            log(f"# kinetic: JAX's own bar for the {stage} stage, MPE < "
+                f"{JAX_MPE_BARS[stage]} mm (tests/test_kinetic_dataset.py, "
+                f"printed only): port "
+                f"{[round(r['mpe'], 2) for r in mine]}, jax_f64 {jax_mpe}")
+        agree[stage] = a
+    worst_static = max(v for d in same.values() for k, v in d.items()
+                       if k.startswith("stance"))
+    agree["static_grf_max_abs_bw"] = worst_static
+    if worst_static > TOL_STATIC_GRF:
+        bad.append(("static_grf", worst_static))
+    mine = artifacts(odir)
+    theirs = ref["f64"]["artifacts"]
+    missing = [p for p in theirs if p not in mine]
+    differ = [p for p, v in theirs.items() if p in mine and mine[p] != v]
+    agree["artifacts"] = {"jax": len(theirs), "port": len(mine),
+                          "missing": missing, "differ": differ}
+    log(f"# kinetic agree: static GRF on the same trajectories, largest "
+        f"|port - jax| {worst_static:.3e} BW (bar {TOL_STATIC_GRF}); "
+        f"artifacts: JAX {len(theirs)}, port {len(mine)}, missing "
+        f"{missing[:5]} ({len(missing)}), differ {differ[:5]} "
+        f"({len(differ)})")
+    for p in differ[:3]:
+        log(f"# kinetic agree: {p}: port {mine[p]} jax {theirs[p]}")
+    out["agree"] = agree
+    if bad or missing or differ:
+        raise AssertionError(f"the kinetic CLI disagrees with the JAX run: "
+                             f"{bad}, missing {missing[:5]}, differ "
+                             f"{differ[:5]}")
+
+    # 7. a 20-step window of one trial's 1-lane kinetic solve (the GRF
+    # re-estimation's, first annealing stage) under torch.profiler,
+    # against an unprofiled run of the same window
+    p = paths[0]
+    est = estimator.init_trajectory(root, p, p.split(os.sep)[-2],
+                                    kinetic_dataset=True,
+                                    kinematic_model=False)
+    kfte, kd, q_warm, _ = estimator.grf_problem(est, odir)
+    kbat, qw = pbatch.pad_and_stack_kinetic([kd], [q_warm], device=dev)
+    window = kfte.make_solver(stages=((3.0, PROFILE_STEPS),))
+    # the CLI run above warmed this solver up: one unprofiled run
+    t0 = time.perf_counter()
+    window(qw, kbat)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    cuda_banded.reset_launches()
+    prof = profiled(lambda: window(qw, kbat), walls[-1])
+    prof["lm_steps"] = cuda_banded.launches
+    prof["device_events_per_step"] = prof["device_kernel_launches"] / \
+        prof["lm_steps"]
+    prof["device_idle_share"] = 1.0 - prof["device_busy_share"]
+    prof["ms_per_step"] = walls[-1] / prof["lm_steps"] * 1e3
+    log(f"# kinetic profile: GRF re-estimation {p}, {PROFILE_STEPS}-step "
+        f"window (unprofiled {walls[-1]:.3f} s) {prof}")
+    out["profile_kinetic"] = prof
+    results["kinetic"] = out
+    return by_shape, worst_rel, worst_abs
 
 
 def phase_agree(ctx, rows_kernel, results):
@@ -1739,8 +2187,13 @@ def main():
               encoding="utf-8") as f:
         serial_ref = json.load(f)
     serial_shapes = phase_serial(dev, results, serial_ref, root, dset)
-    worst_rel = max(worst_rel, phys_rel, cli_rel)
-    worst_abs = max(worst_abs, phys_abs, cli_abs)
+    with open(os.path.join(HERE, "tests", "data", "jax_kinetic_f32.json"),
+              encoding="utf-8") as f:
+        kinetic_ref = json.load(f)
+    kinetic_shapes, kin_rel, kin_abs = phase_kinetic(dev, results,
+                                                     kinetic_ref)
+    worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel)
+    worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs)
 
     main_shape = timed[0]                     # (10, 64): the finish's shape
     keys = ("kernel_ms", "plain_ms", "cr_ms", "library_ms", "bound_ms",
@@ -1752,12 +2205,13 @@ def main():
         "replaces": "cheetah_pose_estimation_tpu/ops/pallas_banded.py:262,309",
         "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values())
         + sum(physics_shapes.values()) + sum(cli_shapes.values())
-        + sum(serial_shapes.values()),
+        + sum(serial_shapes.values()) + sum(kinetic_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
                              "physics": shape_keys(physics_shapes),
                              "cli": shape_keys(cli_shapes),
-                             "serial_cli": shape_keys(serial_shapes)},
+                             "serial_cli": shape_keys(serial_shapes),
+                             "kinetic_cli": shape_keys(kinetic_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

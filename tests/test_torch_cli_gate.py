@@ -1,6 +1,8 @@
 """The agreement rule chip_smoke's dataset-CLI phase holds the port's
-per-mode means to against the JAX CLI run (``chip_smoke.cli_gap``), and the
-artifact layout it compares (``chip_smoke.artifacts``), on made-up values.
+per-mode means to against the JAX CLI run (``chip_smoke.cli_gap``), the
+force-plate phase's rule against the JAX float64 run
+(``chip_smoke.kinetic_gate``), and the artifact layout it compares
+(``chip_smoke.artifacts``), on made-up values.
 """
 import importlib.util
 import json
@@ -101,3 +103,23 @@ def test_unstable_reference_trial_is_set_aside():
         (kept.mean() - np.mean(JAX)) / np.mean(JAX), abs=1e-15)
     assert g["rel"] == pytest.approx(
         (np.mean(port) - np.mean(JAX)) / np.mean(JAX), abs=1e-15)
+
+
+@pytest.mark.parametrize("port,f32,ok", [
+    (19.5, 19.4, True),      # within 2 % of float64
+    (19.0, 19.4, True),      # within 2 % the other way
+    (20.0, 19.4, False),     # outside, and JAX float32 is inside
+    (24.0, 25.0, False),     # JAX float32 misses by 30 %: no wider bar
+    (19.68, 25.0, True),     # within 2 %, JAX float32 far off
+    (18.9, 25.0, False),     # just outside below, JAX float32 far off
+    (14.0, 25.0, False),     # far below float64
+])
+def test_kinetic_gate(port, f32, ok):
+    """The port's mean against JAX float64 (here 19.3) within 2 % either
+    way; the JAX float32 mean is reported and never widens the bar."""
+    g = cs.kinetic_gate(port, 19.3, f32, 0.02)
+    assert g["ok"] is ok
+    assert g["rel_f64"] == pytest.approx((port - 19.3) / 19.3, abs=1e-15)
+    assert g["rel_f32"] == pytest.approx((port - f32) / f32, abs=1e-15)
+    assert g["jax_f32_vs_f64"] == pytest.approx((f32 - 19.3) / 19.3,
+                                                abs=1e-15)

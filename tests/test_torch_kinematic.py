@@ -8,6 +8,8 @@ expressions (observed ~1e-16 relative; bound 1e-10). After one LM step and
 after the short multistart the trajectories differ only by the order of
 float64 sums through a few factorizations (observed ~1e-13; bound 1e-8).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from cheetah_pose_estimation_tpu.pipeline import bench_lib as jbl
 from cheetah_pose_estimation_tpu.solver import gn as jgn
 from cheetah_pose_estimation_tpu.solver import kinematic as jkin
 from cheetah_pose_estimation_tpu_torch import convert
+from cheetah_pose_estimation_tpu_torch.ops import banded as tbanded
 from cheetah_pose_estimation_tpu_torch.parallel import batch as tbatch
 from cheetah_pose_estimation_tpu_torch.solver import gn as tgn
 from cheetah_pose_estimation_tpu_torch.solver import kinematic as tkin
@@ -202,3 +205,48 @@ def test_padded_batch_normal_matches_jax(ftes):
     assert _rel(jax.jit(jax.vmap(lambda q, d: jf._cost_impl(q, d, 1.0)))(
                 qj, bj),
                 tf._cost_impl(qt, bt, 1.0)) < 1e-10
+
+
+def test_acc_gradient_is_the_banded_product_without_its_cancellation():
+    """``acc_gradient`` (D^T W (D q) by nested differences) is the gradient
+    of ``acc_cost`` and, in float64, the product ``matvec(acc_banded, q)``
+    the JAX package forms. In float32, on a 200 fps trajectory of a few
+    metres, the product cancels terms of ~1e8 and misses the gradient at
+    that float32 point by > 1e-3 of its largest entry; the differences
+    stay within 1e-4. ``KinematicFTE.acc_gradient`` takes the differences
+    in the force-plate configuration only."""
+    rng = np.random.default_rng(0)
+    N, h = 50, 0.005
+    t = np.arange(N) * h
+    q = np.empty((2, N, 54))
+    q[:, :, 0] = 1.0 + 9.0 * t
+    q[:, :, 1:3] = 0.5 + 0.05 * np.sin(6 * np.pi * t)[:, None]
+    q[:, :, 3:] = 0.3 * np.sin(6 * np.pi * t[:, None]
+                               + rng.uniform(0, 6, 51))
+    q = q.astype(np.float32).astype(np.float64)
+    w = rng.uniform(0.5, 2.0, (2, 54))
+    fv = np.ones((2, N))
+    fv[1, 44:] = 0.0
+    args = lambda d: [torch.as_tensor(a, dtype=d)
+                      for a in (q, np.full(2, h), w, fv)]
+    q64, h64, w64, fv64 = args(torch.float64)
+    g = tkin.acc_gradient(q64, h64, w64, fv64)
+    qg = q64.clone().requires_grad_(True)
+    auto = torch.autograd.grad(tkin.acc_cost(qg, h64, w64, fv64).sum(),
+                               qg)[0]
+    prod = tbanded.matvec(tkin.acc_banded(h64, w64, fv64), q64)
+    assert _rel(g, auto) < 1e-12 and _rel(g, prod) < 1e-9
+    q32, h32, w32, fv32 = args(torch.float32)
+    g32 = tkin.acc_gradient(q32, h32, w32, fv32).double()
+    p32 = tbanded.matvec(tkin.acc_banded(h32, w32, fv32), q32).double()
+    scale = float(g.abs().max())
+    assert float((g32 - g).abs().max()) < 1e-4 * scale
+    assert float((p32 - g).abs().max()) > 1e-3 * scale
+    data = types.SimpleNamespace(h=h32, acc_weight=w32, frame_valid=fv32)
+    H32 = tkin.acc_banded(h32, w32, fv32)
+    for kinetic_dataset, want in (
+            (True, tkin.acc_gradient(q32, h32, w32, fv32)),
+            (False, tbanded.matvec(H32, q32))):
+        fte = tkin.KinematicFTE(tkin.KinematicConfig(
+            kinetic_dataset=kinetic_dataset), SUBJECT)
+        assert torch.equal(fte.acc_gradient(q32, data, H32), want)

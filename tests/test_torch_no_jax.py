@@ -6,7 +6,9 @@ then the physics stage on it with tiny schedules; render the first trial of the 
 set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
 (``run_monocular_batched``, multi-view), then the serial per-trial path on
 it (``run_monocular``, the default and physics-based modes, tiny
-schedules, priors trained on small procedural tables); then check
+schedules, priors trained on small procedural tables), and import the
+force-plate analysis and the static GRF solver and run the solver on a
+short trajectory; then check
 ``sys.modules``. No
 module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
 own copies of the tables it needs."""
@@ -118,6 +120,14 @@ SCRIPT = textwrap.dedent("""
     assert os.path.exists(os.path.join(base, "grf", "data_synth.csv"))
     assert rep["physics-based"]["per_trial"][os.path.join(d, c, t)][
         "attempt"] == 1
+    from cheetah_pose_estimation_tpu_torch.pipeline import results
+    from cheetah_pose_estimation_tpu_torch.solver import static_grf
+    qk = torch.as_tensor(syn.gallop_trajectory(6, fps=200.0, seed=0))
+    gz, gxy = static_grf.estimate_static_grf(
+        qk, torch.zeros_like(qk), torch.zeros_like(qk),
+        torch.ones(6, 4, dtype=torch.float64), params.get_subject("shiraz"))
+    assert gz.shape == (6, 4) and torch.isfinite(gxy).all()
+    assert sorted(results.check_grf(gxy.numpy())) == ["n_invalid", "ok"]
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                          "cheetah_pose_estimation_tpu"))

@@ -192,9 +192,8 @@ def check_estimate_kinematics(tree, tmp_path, monkeypatch, mode):
     assert describe(a) == describe(b)
     assert np.abs(a["q"] - b["q"]).max() <= TOL_Q[mode] * max(
         1.0, np.abs(a["q"]).max()), p
-    if rep.get("scan_shift", 0.0) == 0.0:
-        assert abs(a["obj_cost"] - b["obj_cost"]) <= TOL_Q[mode] * max(
-            1.0, abs(a["obj_cost"]))
+    assert abs(a["obj_cost"] - b["obj_cost"]) <= TOL_Q[mode] * max(
+        1.0, abs(a["obj_cost"]))
     assert sorted(os.listdir(os.path.join(jout, p, _sub(mode)))) == \
         sorted(os.listdir(os.path.join(tout, p, _sub(mode))))
     if monocular:
