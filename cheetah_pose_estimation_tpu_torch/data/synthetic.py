@@ -1,11 +1,10 @@
 """Synthetic trial generation (procedural gallops, camera rings, DLC-like
 detections with correlated failures, AcinoSet-style trial directories).
 
-Port of ``cheetah_pose_estimation_tpu/data/synthetic.py`` (without the
-pairwise pseudo-measurement files of ``write_trial_dir(write_ppm=True)``),
-as numpy on top of the port's forward kinematics and camera model (float64
-on the CPU). The random draws follow the JAX package's exactly, in order and
-count, so the same seed gives the same trial.
+Port of ``cheetah_pose_estimation_tpu/data/synthetic.py``, as numpy on top
+of the port's forward kinematics and camera model (float64 on the CPU).
+The random draws follow the JAX package's exactly, in order and count, so
+the same seed gives the same trial.
 """
 from __future__ import annotations
 
@@ -232,10 +231,13 @@ def synthesize(q_gt: np.ndarray, subject: SubjectParams,
 
 
 def write_trial_dir(trial: SyntheticTrial, root_dir: str, data_path: str,
-                    monocular_cam: int = 0,
+                    monocular_cam: int = 0, write_ppm: bool = False,
                     ground_plane_height: float = 0.0) -> str:
     """Materialize a synthetic trial as an AcinoSet-style directory tree:
-    dlc/cam*.csv, extrinsic_calib/N_cam_scene_sba.json, metadata.json."""
+    dlc/cam*.csv, extrinsic_calib/N_cam_scene_sba.json, metadata.json, and
+    with ``write_ppm`` the pairwise pseudo-measurements of each camera
+    (``ppm.synthesize_ppm`` with the camera's index as seed) as
+    dlc_pw/cam*.pickle."""
     from . import io as dio
 
     data_dir = os.path.join(root_dir, data_path)
@@ -245,6 +247,15 @@ def write_trial_dir(trial: SyntheticTrial, root_dir: str, data_path: str,
         dio.save_dlc_table(
             os.path.join(data_dir, "dlc", f"cam{c + 1}.csv"),
             trial.meas[:, c, :, :, 0], trial.likelihood[:, c, :, 0])
+    if write_ppm:
+        from . import ppm as ppm_mod
+        for c in range(C):
+            pose, lik, pws = ppm_mod.synthesize_ppm(
+                trial.meas[:, c, :, :, 0], trial.likelihood[:, c, :, 0],
+                seed=c)
+            ppm_mod.save_ppm_pickle(
+                os.path.join(data_dir, "dlc_pw", f"cam{c + 1}.pickle"),
+                pose, lik, pws)
     dio.save_scene(
         os.path.join(data_dir, "extrinsic_calib",
                      f"{C}_cam_scene_sba.json"),

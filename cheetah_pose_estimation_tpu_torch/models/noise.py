@@ -5,9 +5,10 @@ The port's own copy of the tables of
 per-marker pixel standard deviations R for the base DLC predictions and
 the two pairwise pseudo-measurement rows (inflated x2 for the rigid-body
 assumption), and per-DOF process noise Q for the constant-acceleration
-motion model (zero entries = unpenalized DOFs), and the per-coordinate EOM
-slack floor of the physics stage. ``tests/test_torch_tables.py`` holds
-every value equal to the original.
+motion model (zero entries = unpenalized DOFs), the per-coordinate EOM
+slack floor of the physics stage, and the AcinoSet DLC part indices and
+pairwise graph that the pseudo-measurements (``data/ppm.py``) read.
+``tests/test_torch_tables.py`` holds every value equal to the original.
 """
 from __future__ import annotations
 
@@ -34,6 +35,34 @@ _R_PW2 = np.array([
 
 # (3, 24): stacked [base, pw1, pw2] then doubled
 R_PW = np.stack([R_BASE, _R_PW1, _R_PW2]) * 2.0
+
+# DLC part index of each skeleton marker within the AcinoSet 25-part DLC
+# model output
+DLC_MARKER_INDEX = {
+    "nose": 23, "r_eye": 0, "l_eye": 1, "neck_base": 24, "spine": 6,
+    "tail_base": 22, "tail1": 11, "tail2": 12,
+    "l_shoulder": 13, "l_front_knee": 14, "l_front_ankle": 15,
+    "l_front_paw": 16, "r_shoulder": 2, "r_front_knee": 3,
+    "r_front_ankle": 4, "r_front_paw": 5,
+    "l_hip": 17, "l_back_knee": 18, "l_back_ankle": 19, "l_back_paw": 20,
+    "r_hip": 7, "r_back_knee": 8, "r_back_ankle": 9, "r_back_paw": 10,
+}
+N_DLC_PARTS = 25
+
+# the two source parts of each marker's pairwise pseudo-measurements
+PAIRWISE_GRAPH = {
+    "r_eye": [23, 1], "l_eye": [23, 0], "nose": [0, 1],
+    "neck_base": [6, 23], "spine": [22, 24], "tail_base": [6, 11],
+    "tail1": [6, 22], "tail2": [11, 22],
+    "l_shoulder": [14, 24], "l_front_knee": [13, 15],
+    "l_front_ankle": [13, 14], "l_front_paw": [14, 15],
+    "r_shoulder": [3, 24], "r_front_knee": [2, 4],
+    "r_front_ankle": [2, 3], "r_front_paw": [3, 4],
+    "l_hip": [18, 22], "l_back_knee": [17, 19],
+    "l_back_ankle": [17, 18], "l_back_paw": [18, 19],
+    "r_hip": [8, 22], "r_back_knee": [7, 9],
+    "r_back_ankle": [7, 8], "r_back_paw": [8, 9],
+}
 
 # per-DOF process noise std, in q order (54); squared below.
 _Q_STD = np.array([

@@ -11,9 +11,8 @@ synthesized force profiles, and the serial per-trial solves
 at its own length on the device of the run (the card by default), and the
 force-plate pipeline's GRF solves on a saved solution (``estimate_grf``,
 the torque-anchored re-estimation; ``estimate_static_grf``, per frame).
-Not ported: the pairwise pseudo-measurements (``enable_ppm``), the joint
-shutter-delay solve and the rolling AR refinement (ROADMAP Queue 1 #12, #8,
-#11). Host work is numpy and float64 torch on the CPU.
+Not ported: the joint shutter-delay solve and the rolling AR refinement
+(ROADMAP Queue 1 #8, #11). Host work is numpy and float64 torch on the CPU.
 
 Directory layout consumed (the reference's):
 
@@ -284,10 +283,10 @@ def init_trajectory(root_dir: str, data_path: str, cheetah_name: str,
     window, sync offsets, ground height and monocular camera (explicit
     start/end frames override only the window), the scene calibration, the
     frame rate from the path, and the measurements (all cameras, or the
-    monocular one)."""
-    if enable_ppm:
-        raise NotImplementedError("pairwise pseudo-measurements (enable_ppm)"
-                                  " are not ported")
+    monocular one). With ``enable_ppm``, each DLC prediction is joined by
+    its two pairwise pseudo-measurements from ``dlc_pw/*.pickle`` (one
+    pickle per camera): W = 3 measurements per marker. Host work only:
+    the solves take the device."""
     subject = params_mod.get_subject(cheetah_name)
     data_dir = os.path.join(root_dir, data_path)
     assert os.path.exists(data_dir), data_dir
@@ -352,10 +351,22 @@ def _load_measurements(est: CheetahEstimator):
     est.xy = meas
     est.likelihood = likelihood
 
-    w_rows = noise_tables.measurement_weights(1, p.kinetic_dataset)
-    gate = (likelihood > p.dlc_thresh).astype(float)
-    weight_full = np.einsum("wl,ncl->nclw", w_rows, gate)
-    meas_full = meas[..., None]
+    if p.enable_ppms:
+        # W = 3: the pairwise pseudo-measurements beside each prediction,
+        # from the unsynchronised DLC arrays as the JAX package reads them
+        from glob import glob
+
+        from ..data import ppm as ppm_mod
+        pw_paths = sorted(glob(os.path.join(dlc_dir + "_pw", "*.pickle")))
+        assert len(pw_paths) == C, (pw_paths, C)
+        meas_full, weight_full = ppm_mod.assemble_ppm_measurements(
+            xy, lik, [ppm_mod.load_ppm_pickle(f) for f in pw_paths],
+            p.start_frame, N, p.dlc_thresh, p.kinetic_dataset)
+    else:
+        w_rows = noise_tables.measurement_weights(1, p.kinetic_dataset)
+        gate = (likelihood > p.dlc_thresh).astype(float)
+        weight_full = np.einsum("wl,ncl->nclw", w_rows, gate)
+        meas_full = meas[..., None]
     sl = slice(None) if est.scene.cam_idx is None else \
         slice(est.scene.cam_idx, est.scene.cam_idx + 1)
     # the scene file stores t as (C, 3, 1); the solver takes (C, 3)

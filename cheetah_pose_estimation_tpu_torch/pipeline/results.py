@@ -5,11 +5,11 @@ Port of part of ``cheetah_pose_estimation_tpu/pipeline/results.py``: 2D
 reprojection error against hand labels (on the CSV tables, without pandas),
 the contact file's per-role stance table, stance-normalised gait curves
 (joint angles, torques, power per limb role), the friction-polygon check of
-solved GRFs, and the torque and gait plots. The plots import matplotlib
-when called and return False, writing nothing, where it is not installed;
-every metric is also returned as data. The rest of the JAX module (the
-studies' figures, the GRF error against force plates, the LCP and contact
-checks) is not ported.
+solved GRFs, the torque and gait plots, and the per-camera robustness of
+one trial (``--run_analysis``). The plots import matplotlib when called
+and write nothing where it is not installed; every metric is also returned
+as data. The rest of the JAX module (the studies' figures, the GRF error
+against force plates, the LCP and contact checks) is not ported.
 """
 from __future__ import annotations
 
@@ -247,3 +247,67 @@ def plot_gait_attributes(analysis: Dict, out_path: str) -> bool:
     fig.savefig(out_path, bbox_inches="tight")
     plt.close(fig)
     return True
+
+
+# the cameras of ``example_robustness``'s chart (those of the test set)
+ROBUSTNESS_CAMS = range(6)
+
+
+def example_robustness(dir_prefix: str,
+                       test_run: Tuple[str, str, str] =
+                       ("phantom", "2019_03_07", "run")
+                       ) -> Dict[str, List[float]]:
+    """Per-camera robustness of one trial: the mean root-relative MPJPE
+    (mm) of the default, data-driven and physics-based solutions of each
+    of the cameras ``ROBUSTNESS_CAMS`` whose three solutions all exist
+    under ``dir_prefix``, against the multi-view solve, and their bar chart
+    ``example-cam-robustness.pdf`` in ``dir_prefix`` (a line names it when
+    matplotlib is not installed). As in the JAX package, every pickle is
+    read from ``dir_prefix``."""
+    from . import metrics as metrics_mod
+
+    cheetah, date, trial = test_run
+    data_path = os.path.join(date, cheetah, trial)
+    vals: Dict[str, List[float]] = {
+        "single_traj_error": [], "data_driven_traj_error": [],
+        "physics_based_traj_error": []}
+    cams: List[int] = []
+    gt_path = os.path.join(dir_prefix, data_path, "fte_kinematic",
+                           "fte.pickle")
+    if not os.path.exists(gt_path):
+        return vals
+    gt = dio.load_fte_pickle(gt_path)["positions"]
+    for cam_idx in ROBUSTNESS_CAMS:
+        base = os.path.join(dir_prefix, data_path)
+        paths = [os.path.join(base, f"{k}_{cam_idx}", "fte.pickle")
+                 for k in ("fte_kinematic_orig", "fte_kinematic",
+                           "fte_kinetic")]
+        if not all(os.path.exists(p) for p in paths):
+            continue
+        cams.append(cam_idx)
+        for key, p in zip(vals, paths):
+            pos = dio.load_fte_pickle(p)["positions"]
+            _, err, _ = metrics_mod.traj_error(gt, pos, centered=True)
+            vals[key].append(float(err.mean()))
+    if cams:
+        out = os.path.join(dir_prefix, "example-cam-robustness.pdf")
+        plt = _pyplot()
+        if plt is None:
+            print(f"matplotlib is not installed: skipped {out}")
+            return vals
+        fig = plt.figure(figsize=(16, 12), dpi=60)
+        width = 0.25
+        x = np.arange(len(cams))
+        for k, (key, label, color) in enumerate((
+                ("single_traj_error", "Default", "#36454f"),
+                ("data_driven_traj_error", "Data-driven", "#2ca02c"),
+                ("physics_based_traj_error", "Physics-based", "#ff7f0e"))):
+            plt.bar(x + k * width, vals[key], width, label=label,
+                    color=color)
+        plt.xticks(x + width, [str(c + 1) for c in cams])
+        plt.ylabel("MPJPE (mm)")
+        plt.xlabel("Camera")
+        plt.legend()
+        fig.savefig(out, bbox_inches="tight")
+        plt.close(fig)
+    return vals

@@ -1,8 +1,9 @@
-"""The dataset CLI: its monocular and force-plate paths.
+"""The dataset CLI: its monocular, force-plate, AcinoSet and analysis paths.
 
 Port of ``cheetah_pose_estimation_tpu/pipeline/run_dataset.py`` for
 ``--materialize_synthetic``, ``--run_monocular --clean`` (serial or
-``--batched``) and ``--run_kinetic [--clean]``::
+``--batched``), ``--run_kinetic [--clean]``, ``--run_acinoset [--clean]``
+and ``--run_analysis [--clean] [--batched]``::
 
     python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
         --materialize_synthetic --root_dir R
@@ -11,6 +12,12 @@ Port of ``cheetah_pose_estimation_tpu/pipeline/run_dataset.py`` for
         --run_monocular [--batched] --clean --root_dir R --out_dir_prefix O
     python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
         --run_kinetic --clean --root_dir R --out_dir_prefix O
+    CHEETAH_DATA_DRIVEN_DATASET=P \
+    python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
+        --run_acinoset --clean --root_dir R --out_dir_prefix O
+    CHEETAH_DATA_DRIVEN_DATASET=P \
+    python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
+        --run_analysis [--batched] --clean --root_dir R --out_dir_prefix O
 
 The first renders the 10-trial synthetic test set (AcinoSet directory
 layout, 6 fisheye cameras, correlated DLC failures) into R; the second
@@ -24,8 +31,15 @@ batch (``batched.run_monocular_batched``). The third runs the force-plate
 pipeline (:func:`run_kinetic`) over the 5 trials of ``KINETIC_SET`` under
 ``R/kinetic_dataset`` and then its analysis (:func:`kinetic_analysis`); as
 in the JAX CLI, no flag renders that tree
-(:func:`materialize_synthetic_kinetic_testset` does). The study and
-analysis flags are not defined, and the post-process plots are not made.
+(:func:`materialize_synthetic_kinetic_testset` does). The fourth solves
+every AcinoSet trial directory under R (:func:`run_acinoset`: ground
+truth, default, data-driven; pairwise pseudo-measurements on flick trials
+that have them) and prints :func:`validate_dataset`; the fifth solves
+every camera of every test trial as the monocular one
+(:func:`run_monocular_all`), then writes the distance-vs-error table
+(:func:`distance_vs_error`) and the per-camera robustness of one trial
+(``results.example_robustness``). The study flags are not defined, and
+the post-process plots are not made.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ import torch
 from ..data import io as dio
 from ..data import synthetic as syn
 from ..models import params as params_mod
+from ..ops import camera as cam_ops
 from ..ops import cuda_banded
 from ..utils.device import DeviceLike, resolve_device
 from . import contacts as contacts_mod
@@ -396,6 +411,328 @@ def kinetic_analysis(root_dir: str, dir_prefix: str,
     return out
 
 
+# Hand-curated AcinoSet frame windows (the active entries of the
+# reference's table): a real AcinoSet directory outside the table had bad
+# input data and is skipped.
+ACINOSET_SELECTED_FRAMES: Dict[str, Tuple[int, int]] = {
+    "2019_03_03/phantom/run": (100, 220),
+    "2019_03_09/lily/run": (80, 170),
+    "2017_08_29/top/phantom/run1_1": (20, 160),
+    "2017_12_21/top/lily/run1": (10, 105),
+    "2017_12_21/bottom/jules/flick2_2": (5, 150),
+    "2017_12_10/top/zorro/flick1": (115, 210),
+    "2017_12_10/bottom/zorro/flick2": (5, 140),
+    "2017_09_03/bottom/zorro/run2_1": (130, 270),
+    "2017_12_09/bottom/phantom/run2": (20, 115),
+    "2017_09_03/bottom/zorro/run2_3": (5, 150),
+    "2017_08_29/top/jules/run1_1": (10, 110),
+    "2017_09_02/top/jules/run1": (10, 110),
+    "2019_03_07/menya/run": (60, 160),
+    "2017_09_02/top/phantom/run1_2": (20, 160),
+    "2019_03_07/phantom/run": (100, 200),
+    "2019_02_27/romeo/run": (40, 150),
+    "2019_02_27/romeo/flick": (10, 150),
+    "2017_08_29/top/jules/run1_2": (30, 130),
+    "2017_12_16/top/cetane/run1": (110, 210),
+    "2019_02_27/kiara/run": (20, 100),
+    "2017_09_02/bottom/jules/run2": (50, 160),
+    "2017_09_03/bottom/zorro/run2_2": (32, 141),
+    "2019_03_09/jules/flick1": (40, 160),
+    "2017_09_03/bottom/zorro/flick2": (10, 100),
+    "2017_08_29/bottom/zorro/flick2": (75, 135),
+    "2017_12_09/bottom/jules/flick2": (5, 75),
+    "2017_12_17/bottom/zorro/flick2": (5, 145),
+}
+
+# directories with erroneous input, skipped (the reference's list is empty)
+ACINOSET_BAD_VIDEOS: Tuple[str, ...] = ()
+
+# the modes ``run_acinoset`` solves each trial in
+ACINOSET_MODES = ("ground-truth", "default", "data-driven")
+
+
+def run_acinoset(root_dir: str, dir_prefix: str,
+                 dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None,
+                 report: Optional[dict] = None) -> List[str]:
+    """Every AcinoSet trial directory under ``root_dir`` (one holding
+    ``metadata.json`` and ``dlc/``) through ``ACINOSET_MODES`` (multi-view
+    ground truth, default and data-driven monocular
+    ``estimate_kinematics``), each trial alone at its own length on
+    ``device`` (the card by default), artifacts under ``dir_prefix``.
+
+    A directory named as real AcinoSet data (``2016_``, ``2017_``,
+    ``2019_``) runs only when it is in ``ACINOSET_SELECTED_FRAMES``, with
+    its curated window where the trial's own frame range covers it (else
+    its metadata's); other directories (synthetic trials) run windowed by
+    their metadata. Directories in ``ACINOSET_BAD_VIDEOS`` are skipped. The
+    subject is the first of jules, phantom, shiraz, arabia in the path
+    (else acinoset). A "flick" trial with a ``dlc_pw/`` folder gets the
+    pairwise pseudo-measurements (W = 3). A trial whose files are
+    missing or inconsistent (``FileNotFoundError``, ``AssertionError``) is
+    reported and skipped; any other error propagates. Returns the trials
+    done. With ``report``, per mode: the trials, and per trial the wall
+    seconds, the kernel's launches per (B, N), the solve's decisions and
+    the measurements per marker W."""
+    from glob import glob
+
+    dev = resolve_device(device)
+    rep = {} if report is None else report
+    kw = dict(out_dir_prefix=dir_prefix, dtype=dtype, device=dev)
+    done = []
+    for meta in sorted(glob(os.path.join(root_dir, "**", "metadata.json"),
+                            recursive=True)):
+        trial_dir = os.path.dirname(meta)
+        if not os.path.isdir(os.path.join(trial_dir, "dlc")):
+            continue
+        data_path = os.path.relpath(trial_dir, root_dir)
+        if data_path in ACINOSET_BAD_VIDEOS:
+            continue
+        frames = ACINOSET_SELECTED_FRAMES.get(data_path)
+        if frames is None and any(
+                data_path.startswith(y) for y in
+                ("2017_", "2019_", "2016_")):
+            continue
+        start, end = frames if frames is not None else (-1, -1)
+        if frames is not None:
+            # a synthetic copy of a curated trial is shorter than the real
+            # video: the curated window applies only where it fits
+            md = dio.load_metadata(trial_dir)
+            if not (md["start_frame"] <= start and end <= md["end_frame"]):
+                start, end = -1, -1
+        cheetah = next((n for n in ("jules", "phantom", "shiraz", "arabia")
+                        if n in data_path), "acinoset")
+        use_ppm = ("flick" in data_path
+                   and os.path.isdir(os.path.join(trial_dir, "dlc_pw")))
+        try:
+            for mode in ACINOSET_MODES:
+                est = est_mod.init_trajectory(
+                    root_dir, data_path, cheetah, kinematic_model=True,
+                    start_frame=start, end_frame=end,
+                    monocular_enable=mode != "ground-truth",
+                    enable_ppm=use_ppm)
+                _, tr = _timed(dev, lambda tr: est_mod.estimate_kinematics(
+                    est, monocular_constraints=mode == "data-driven",
+                    report=tr, **kw))
+                tr["W"] = int(np.shape(est.data.meas)[-1])
+                m = rep.setdefault(mode, {"trials": [], "per_trial": {}})
+                m["trials"].append(data_path)
+                m["per_trial"][data_path] = tr
+            done.append(data_path)
+        except (FileNotFoundError, AssertionError) as e:
+            print(f"skip {data_path}: {e}")
+    return done
+
+
+def validate_dataset(dir_prefix: str, test_set: Tuple = TEST_SET
+                     ) -> Dict[str, bool]:
+    """Plausibility of every saved solution (``fte*/fte.pickle``) of the
+    trials of ``test_set`` under ``dir_prefix``: CoM speed <= 50 m/s and
+    base height in (-0.3, 1) m on every frame. Returns {"<trial>/<dir>":
+    ok}."""
+    report = {}
+    for cheetah, date, trial_name in test_set:
+        data_path = os.path.join(date, cheetah, trial_name)
+        base = os.path.join(dir_prefix, data_path)
+        for sub in os.listdir(base) if os.path.isdir(base) else []:
+            if not sub.startswith("fte"):
+                continue
+            p = os.path.join(base, sub, "fte.pickle")
+            if not os.path.exists(p):
+                continue
+            d = dio.load_fte_pickle(p)
+            speed = np.linalg.norm(d["com_vel"], axis=1)
+            ok = bool((speed <= 50.0).all()
+                      and (d["q"][:, 2] > -0.3).all()
+                      and (d["q"][:, 2] < 1.0).all())
+            report[f"{data_path}/{sub}"] = ok
+    return report
+
+
+def run_monocular_all(root_dir: str, dir_prefix: str,
+                      test_set: Tuple = TEST_SET,
+                      modes: Tuple[str, ...] = ("default", "data-driven"),
+                      batched: bool = False,
+                      dtype: torch.dtype = torch.float32,
+                      device: DeviceLike = None,
+                      report: Optional[dict] = None) -> None:
+    """Every camera of every trial of ``test_set`` under ``root_dir`` as
+    the monocular camera, through ``modes`` on ``device`` (the card by
+    default): the input of the distance-vs-error analysis. With
+    ``batched``, the multi-view ground truth of each trial once, then each
+    (trial, camera) combination as one lane of
+    ``batched.run_monocular_batched`` (60 lanes on the 10-trial test set,
+    in its subject groups); without it, :func:`run_monocular` on each
+    combination in turn (``modes`` only, as in the JAX package: the
+    ground truth is not solved). ``report`` is passed to the runs: per
+    mode, the batched form's lanes in its subject groups' order; the
+    serial form's per-trial entries keep each trial's last camera."""
+    dev = resolve_device(device)
+    combos: List[Tuple[str, str, str]] = []
+    cams: List[int] = []
+    for cheetah, date, trial_name in test_set:
+        data_path = os.path.join(date, cheetah, trial_name)
+        if not os.path.isdir(os.path.join(root_dir, data_path)):
+            continue
+        k_arr = dio.find_scene_file(os.path.join(root_dir, data_path))[0]
+        for cam in range(len(k_arr)):
+            combos.append((cheetah, date, trial_name))
+            cams.append(cam)
+    kw = dict(verbose=False, dtype=dtype, device=dev, report=report)
+    if batched:
+        from . import batched as batched_mod
+        batched_mod.run_monocular_batched(
+            root_dir, dir_prefix, list(dict.fromkeys(combos)),
+            modes=("ground-truth",), **kw)
+        batched_mod.run_monocular_batched(
+            root_dir, dir_prefix, combos, cam_overrides=cams,
+            modes=tuple(m for m in modes if m != "ground-truth"), **kw)
+        return
+    for combo, cam in zip(combos, cams):
+        run_monocular(root_dir, dir_prefix, (combo,), cam_overrides=[cam],
+                      modes=tuple(modes), **kw)
+
+
+def distance_from_camera(data_path: str, com_pos: np.ndarray, cam_idx: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per frame, the distance (m) of the CoM ``com_pos`` (N, 3) from
+    camera ``cam_idx`` of the trial at ``data_path`` and the angle (deg)
+    between its ray and the optical axis through the image centre, by the
+    fisheye model in float64 on the host."""
+    k_arr, d_arr, r_arr, t_arr, cam_res, _, _ = dio.find_scene_file(
+        data_path)
+    d_arr = d_arr.reshape(-1, 4)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    K, D, R = f64(k_arr[cam_idx]), f64(d_arr[cam_idx]), f64(r_arr[cam_idx])
+    t = f64(t_arr[cam_idx]).reshape(3)
+    center_img = np.array([cam_res[0] / 2.0, cam_res[1] / 2.0])
+    img_pts = cam_ops.project_fisheye(f64(com_pos), K, D, R, t)
+    r1 = cam_ops.undistort_fisheye(f64(center_img[None]), K, D).numpy()
+    r2 = cam_ops.undistort_fisheye(img_pts, K, D).numpy()
+    r1 = np.concatenate([r1, [[1.0]]], axis=1)[0]
+    r2 = np.concatenate([r2, np.ones((len(r2), 1))], axis=1)
+    cosang = r2 @ r1 / (np.linalg.norm(r2, axis=1) * np.linalg.norm(r1))
+    angles = np.degrees(np.arccos(np.clip(cosang, -1, 1)))
+    cam_pos = -np.linalg.inv(r_arr[cam_idx]) @ np.asarray(
+        t_arr[cam_idx]).reshape(3)
+    dist = np.linalg.norm(com_pos - cam_pos[None], axis=1)
+    return dist, angles
+
+
+def is_outlier(points: np.ndarray, thresh: float = 3.5) -> np.ndarray:
+    """Modified z-score outlier mask: 0.6745 |x - median| / MAD > thresh
+    (all False when the MAD is 0)."""
+    points = np.asarray(points, float)
+    if points.ndim == 1:
+        points = points[:, None]
+    med = np.median(points, axis=0)
+    diff = np.sqrt(np.sum((points - med) ** 2, axis=-1))
+    mad = np.median(diff)
+    if mad == 0:
+        return np.zeros(len(points), bool)
+    return 0.6745 * diff / mad > thresh
+
+
+DIST_COLUMNS = ("trial", "cam", "mode", "mpe_mm", "distance_m", "angle_deg")
+
+
+def distance_vs_error(root_dir: str, dir_prefix: str,
+                      test_set: Tuple = TEST_SET,
+                      cam_overrides: Optional[List[int]] = None,
+                      save_plot: bool = True) -> List[Dict]:
+    """Reconstruction error against the CoM's distance from the camera:
+    per trial of ``test_set`` with a multi-view solve under
+    ``dir_prefix``, per camera (``cam_overrides``' one; else every camera
+    with an ``fte_kinematic_orig_<cam>`` directory, else the metadata's
+    monocular camera) and per mode with a saved solution, a row with
+    ``DIST_COLUMNS``: the MPE (mm) against the multi-view solve, the mean
+    distance (m) and view angle (deg) of the multi-view CoM
+    (:func:`distance_from_camera`). With ``save_plot`` and rows,
+    ``dist_vs_error.csv`` (the bytes pandas' ``to_csv(index=False)``
+    writes) and the scatter ``dist_vs_error.pdf`` (modified z-score
+    outliers > 5 left out) in ``dir_prefix``. The JAX package writes the
+    CSV inside its plot branch; the port writes it whenever ``save_plot``
+    is set, and where matplotlib is not installed prints a line naming
+    the PDF it skipped instead. Returns the rows."""
+    rows = []
+    for idx, (cheetah, date, trial_name) in enumerate(test_set):
+        data_path = os.path.join(date, cheetah, trial_name)
+        base = os.path.join(dir_prefix, data_path)
+        gt_p = os.path.join(base, "fte_kinematic", "fte.pickle")
+        if not os.path.exists(gt_p):
+            continue
+        gt = dio.load_fte_pickle(gt_p)
+        if cam_overrides is not None:
+            cams = [cam_overrides[idx]]
+        else:
+            k_arr = dio.find_scene_file(os.path.join(root_dir,
+                                                     data_path))[0]
+            cams = [c for c in range(len(k_arr)) if os.path.isdir(
+                os.path.join(base, f"fte_kinematic_orig_{c}"))]
+            if not cams:
+                cams = [dio.load_metadata(os.path.join(
+                    root_dir, data_path))["monocular_cam"]]
+        for cam_idx in cams:
+            for mode, sub in MODE_DIRS:
+                p = os.path.join(base, sub.format(cam=cam_idx), "fte.pickle")
+                if not os.path.exists(p):
+                    continue
+                d = dio.load_fte_pickle(p)
+                n = min(len(d["positions"]), len(gt["positions"]))
+                err = np.linalg.norm(
+                    d["positions"][:n] - gt["positions"][:n],
+                    axis=2).mean() * 1000
+                dist, angle = distance_from_camera(
+                    os.path.join(root_dir, data_path),
+                    np.asarray(gt["com_pos"]), cam_idx)
+                rows.append(dict(trial=data_path, cam=cam_idx, mode=mode,
+                                 mpe_mm=float(err),
+                                 distance_m=float(dist.mean()),
+                                 angle_deg=float(np.mean(angle))))
+    if save_plot and rows:
+        write_rows_csv(os.path.join(dir_prefix, "dist_vs_error.csv"), rows,
+                       DIST_COLUMNS)
+        _dist_plot(rows, os.path.join(dir_prefix, "dist_vs_error.pdf"))
+    return rows
+
+
+def write_rows_csv(path: str, rows: List[Dict], columns: Tuple[str, ...]
+                   ) -> None:
+    """``rows`` (dicts of str, int and float) as pandas writes
+    ``DataFrame(rows).to_csv(path, index=False)``: a header of
+    ``columns``, floats as ``repr``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        f.write(",".join(columns) + "\n")
+        for r in rows:
+            f.write(",".join(dio.csv_float(r[k]) if isinstance(r[k], float)
+                             else str(r[k]) for k in columns) + "\n")
+
+
+def _dist_plot(rows: List[Dict], out_path: str) -> None:
+    """The distance-vs-error scatter, one series per mode in the order of
+    the sorted mode names, each without its outliers (modified z-score >
+    5)."""
+    from .results import _pyplot
+
+    plt = _pyplot()
+    if plt is None:
+        print(f"matplotlib is not installed: skipped {out_path}")
+        return
+    fig = plt.figure(figsize=(12, 8), dpi=60)
+    for mode in sorted({r["mode"] for r in rows}):
+        grp = [r for r in rows if r["mode"] == mode]
+        keep = ~is_outlier([r["mpe_mm"] for r in grp], 5.0)
+        plt.scatter([r["distance_m"] for r, k in zip(grp, keep) if k],
+                    [r["mpe_mm"] for r, k in zip(grp, keep) if k],
+                    label=mode)
+    plt.xlabel("CoM distance from camera (m)")
+    plt.ylabel("MPE (mm)")
+    plt.legend()
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+
+
 MODE_DIRS = (("default", "fte_kinematic_orig_{cam}"),
              ("data-driven", "fte_kinematic_{cam}"),
              ("physics-based", "fte_kinetic_{cam}"))
@@ -478,14 +815,22 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
     ``batched.run_monocular_batched`` with ``--batched``) and the results
     table; with ``--run_kinetic``, each force-plate stage's (``kinetic``,
     :func:`run_kinetic`), the analysis per trial (``kinetic_analysis``) and
-    its returned dict (``kinetic_results``). It is also returned."""
+    its returned dict (``kinetic_results``); with ``--run_acinoset``, each
+    mode's (``acinoset``, :func:`run_acinoset`) and the validation dict
+    (``validate``); with ``--run_analysis``, each mode's of the
+    every-camera sweep (``analysis``, :func:`run_monocular_all`), the rows
+    of :func:`distance_vs_error` (``dist_vs_error``) and the values of
+    ``results.example_robustness`` (``robustness``). It is also
+    returned."""
     parser = argparse.ArgumentParser(
         description="cheetah reconstruction over a dataset of trials "
                     "(PyTorch port)")
     parser.add_argument("--root_dir", type=str, default="./cheetah_videos")
     parser.add_argument("--out_dir_prefix", type=str, default="./out")
     parser.add_argument("--run_monocular", action="store_true")
+    parser.add_argument("--run_acinoset", action="store_true")
     parser.add_argument("--run_kinetic", action="store_true")
+    parser.add_argument("--run_analysis", action="store_true")
     parser.add_argument("--override_default_cam", action="store_true")
     parser.add_argument("--clean", action="store_true",
                         help="regenerate reconstructions before analysis")
@@ -545,6 +890,32 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
         print(res)
         if report is not None:
             report["kinetic_results"] = res
+    if args.run_acinoset:
+        if args.clean:
+            rep = report if report is not None else {}
+            done = run_acinoset(args.root_dir, args.out_dir_prefix,
+                                device=args.device,
+                                report=rep.setdefault("acinoset", {}))
+            print(f"processed {len(done)} AcinoSet trials")
+        valid = validate_dataset(args.out_dir_prefix)
+        print(valid)
+        if report is not None:
+            report["validate"] = valid
+    if args.run_analysis:
+        if args.clean:
+            rep = report if report is not None else {}
+            run_monocular_all(args.root_dir, args.out_dir_prefix, test_set,
+                              batched=args.batched, device=args.device,
+                              report=rep.setdefault("analysis", {}))
+        rows = distance_vs_error(args.root_dir, args.out_dir_prefix,
+                                 test_set, cam_overrides)
+        for r in rows:
+            print("  ".join(f"{k}={r[k]}" for k in DIST_COLUMNS))
+        from . import results as results_mod
+        rob = results_mod.example_robustness(args.out_dir_prefix)
+        if report is not None:
+            report["dist_vs_error"] = rows
+            report["robustness"] = rob
     return report
 
 

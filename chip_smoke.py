@@ -23,8 +23,10 @@ Phases (any failure exits nonzero):
    FLOPs and bytes the solve needs. Then, on random SPD systems, the error,
    kernel, plain and library times and bound at every shape the dataset
    CLI launches: the batched path's 6x64, 4x64, 18x64, 12x64, 42x64, 28x64
-   and the serial path's 3xN, 1xN, 7xN for its three trials' N = 40, 42,
-   44, and the force-plate pipeline's 1x50.
+   and the serial path's 3xN, 1xN, 7xN for its two trials' N = 40, 42,
+   the force-plate pipeline's 1x50, the AcinoSet flag's 3xN, 1xN, 7xN for
+   its other two trials' N = 44, 46, and the analysis flag's 36x64, 24x64, 108x64, 72x64, 252x64 and
+   168x64 (the last two in two waves of CTAs: more systems than SMs).
 4. main    — stage 1 of the bench: 10 procedural monocular problems padded
    to 64 frames, ``make_kinematic_multistart`` once (warm-up, with the
    kernel's launch count) and 1 timed repeat; one more run with the probe
@@ -99,7 +101,7 @@ Phases (any failure exits nonzero):
    more under torch.profiler (device events per LM step, busy share of the
    CLI run's unprofiled solve wall).
 10. serial — the dataset CLI's serial per-trial path on phase 9's tree:
-   ``--run_monocular --clean --trials 3`` without ``--batched`` (each trial
+   ``--run_monocular --clean --trials 2`` without ``--batched`` (each trial
    alone at its own length, mode after mode; the physics-based mode in up
    to three attempts), the kernel's launches per mode and shape (each mode
    > 0, every shape one phase 3 timed), s/trial, each trial's decisions
@@ -110,13 +112,15 @@ Phases (any failure exits nonzero):
    means held as in phase 9 (the saved objectives compared directly: both
    packages save it under the data before a line-scan shift), the same accepted
    physics attempt on every trial, every JAX artifact present with its
-   keys and shapes; the JAX run on its own tree printed beside. Then the
-   batched path on the same three trials (its s/trial beside the serial
+   keys and shapes; the JAX run on its own tree printed beside (both on
+   the reference's first two trials). Then the
+   batched path on the same two trials (its s/trial beside the serial
    path's), and one trial's 1-lane ground-truth solve and 3-lane default
    multistart under torch.profiler (the card's idle share).
 11. kinetic — the force-plate pipeline (``run_dataset.main --run_kinetic
-   --clean``) on the synthetic kinetic test set (5 trials of 50 frames, 4
-   pinhole cameras at 200 fps), its tree's digest held against the JAX
+   --clean``) on the first two trials of the synthetic kinetic test set
+   (50 frames, 4 pinhole cameras at 200 fps), its tree's digest held
+   against the JAX
    trees' (``tests/data/jax_kinetic_f32.json``): per stage (kinematic,
    kinetic with synthesized GRFs, GRF re-estimation with the torque anchor)
    s/trial, LM steps and launches per shape (each stage of each trial > 0,
@@ -135,6 +139,34 @@ Phases (any failure exits nonzero):
    beside. Then a 20-step window of one trial's 1-lane kinetic solve (the
    GRF re-estimation) under torch.profiler (device events per LM step, the
    card's idle share).
+12. acinoset — the AcinoSet flag (``run_dataset.main --run_acinoset
+   --clean``) on the first four trials of the synthetic test set, the two
+   flicks with their pairwise pseudo-measurements (W = 3), its tree's and
+   PPM pickles' digests held against the JAX trees'
+   (``tests/data/jax_acinoset_f64.json``): per trial and mode (ground
+   truth, default, data-driven) s, LM steps, launches per shape, W, MPJPE
+   and MPE against the synthetic truth, the saved objective;
+   ``validate_dataset``'s dict. Agreement with the JAX float64 run on the
+   same input: the ground-truth mode's mean MPJPE against the truth within
+   2 % either way, over all four trials and over the two flicks, nothing
+   set aside; W = 3 on the flicks and 1 on the runs on both sides;
+   ``validate_dataset`` equal; every JAX artifact present with its keys
+   and shapes. The monocular modes are printed beside JAX float64 and
+   float32.
+13. analysis — the analysis flag (``run_dataset.main --run_analysis
+   --clean --batched``) on phase 9's tree: the multi-view ground truth of
+   the 10 trials, then all 60 (trial, camera) combinations as lanes of the
+   default and data-driven modes (line-scans at 252x64 and 168x64), the
+   distance-vs-error table and the per-camera robustness; per mode the
+   wall, LM steps and launches per shape. Checks: every solution present
+   and finite, ``dist_vs_error.csv`` with JAX's columns, each combination's
+   CoM distance and view angle within 1 % of JAX's on the JAX float64
+   ground truth; the kernel against its plain version on the 252-lane
+   line-scan's own normal systems (lam = 1e-2, rel error <= 7e-4) and a
+   NaN lane of the second wave isolated. Printed: each combination's MPE
+   against the multi-view solve and its depth, across and rest parts,
+   beside JAX float64's on the two trials it swept; a window of 10 LM
+   steps of that line-scan under torch.profiler.
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -165,13 +197,22 @@ SHAPES = ((10, 64), (30, 64), (70, 64), (1, 256))
 # (jules 6, phantom 4 trials; probes x3, line-scans x7, padded to 64
 # frames), and the serial path's first SERIAL_TRIALS trials at their own
 # lengths (trial i of the synthetic test set has 40 + 2 i frames): the
-# heading multistart (3 lanes), the single solves (1) and the line-scan (7)
-SERIAL_TRIALS = 3
+# heading multistart (3 lanes), the single solves (1) and the line-scan (7).
+# Two of the serial reference's three trials, to keep the smoke's time
+SERIAL_TRIALS = 2
 CLI_SHAPES = ((6, 64), (4, 64), (18, 64), (12, 64), (42, 64), (28, 64))
 SERIAL_SHAPES = tuple((b, 40 + 2 * i) for i in range(SERIAL_TRIALS)
                       for b in (3, 1, 7))
 # the force-plate pipeline: every solve one trial of 50 frames
 KINETIC_SHAPES = ((1, 50),)
+# the AcinoSet flag's serial solves of its four trials past the serial
+# path's (the first SERIAL_TRIALS are SERIAL_SHAPES'), and the every-camera
+# sweep of the analysis flag: 36 and 24 (trial, camera) lanes of the two
+# subject groups, their heading probes (x3) and data-driven line-scans (x7)
+ACINOSET_SHAPES = tuple((b, 40 + 2 * i) for i in range(SERIAL_TRIALS, 4)
+                        for b in (3, 1, 7))
+ANALYSIS_SHAPES = ((36, 64), (24, 64), (108, 64), (72, 64), (252, 64),
+                   (168, 64))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -413,7 +454,9 @@ def kernel_cli_shapes(dev):
     rows = []
     for path, shapes in (("batched CLI", CLI_SHAPES),
                          ("serial CLI", SERIAL_SHAPES),
-                         ("kinetic CLI", KINETIC_SHAPES)):
+                         ("kinetic CLI", KINETIC_SHAPES),
+                         ("acinoset CLI", ACINOSET_SHAPES),
+                         ("analysis CLI", ANALYSIS_SHAPES)):
         for B, N in shapes:
             d32, l32, r32 = cuda_banded.random_systems(B, N, B * 1000 + N,
                                                        dev)
@@ -537,8 +580,10 @@ def probe_finish_split(fte, q0b, batched):
 
 def profiled(fn, wall_unprofiled_s: float) -> dict:
     """Run ``fn`` once under torch.profiler: the sum of kernel times on the
-    one stream, the banded-solve kernel's share of it, and the count of
-    kernel launches. The device's busy share is that device time over
+    one stream, the banded-solve kernel's share of it, the count of kernel
+    launches, and the five kernels that took the most device time (by
+    the first 72 characters of their names: a template's instances are
+    summed). The device's busy share is that device time over
     ``wall_unprofiled_s``, the mean wall of unprofiled runs of the same work
     (the profiler's own event recording stretches the profiled wall, which
     is reported beside it)."""
@@ -553,13 +598,15 @@ def profiled(fn, wall_unprofiled_s: float) -> dict:
         wall_s = time.perf_counter() - t0
     # the profiler's raw events: building its Python event tree
     # (prof.events()) takes minutes for the ~300k device events of a run
-    dev_us, solve_us, n = 0.0, 0.0, 0
+    dev_us, solve_us, n, by_name = 0.0, 0.0, 0, {}
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type().name != "CUDA":
             continue
         us = ev.duration_ns() / 1e3
         dev_us += us
         n += 1
+        name = ev.name()[:72]
+        by_name[name] = by_name.get(name, 0.0) + us
         if "banded_solve_kernel" in ev.name():
             solve_us += us
     if n == 0:
@@ -570,7 +617,10 @@ def profiled(fn, wall_unprofiled_s: float) -> dict:
             "device_busy_share_of_profiled_wall": dev_us / 1e6 / wall_s,
             "device_s": dev_us / 1e6, "banded_solve_s": solve_us / 1e6,
             "banded_solve_share_of_device": solve_us / max(dev_us, 1e-9),
-            "device_kernel_launches": n}
+            "device_kernel_launches": n,
+            "top_kernels_share_of_device": {
+                k: v / max(dev_us, 1e-9) for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:5]}}
 
 
 def phase_profile(ctx, results):
@@ -1071,6 +1121,21 @@ def artifacts(out_dir):
     return out
 
 
+def trial_artifacts(arts, paths):
+    """The layout ``arts`` (``artifacts``) of a run cut to its trials
+    ``paths``: their files, and ``dataset_results.csv`` with only their
+    columns."""
+    out = {k: v for k, v in arts.items()
+           if any(k.startswith(p + os.sep) for p in paths)}
+    for k, v in arts.items():
+        if os.path.basename(k) == "dataset_results.csv":
+            keep = [i for i, t in enumerate(v["header"][0])
+                    if i == 0 or t in paths]
+            out[k] = dict(v, header=[[row[i] for i in keep]
+                                     for row in v["header"]])
+    return out
+
+
 def cli_kernel_check(dev, root, out):
     """The kernel against its plain version in float64 on the ground-truth
     mode's 6-camera normal systems at the multi-view initialisation and on
@@ -1507,14 +1572,15 @@ def serial_modes(report, root, odir, paths, cam):
 
 def phase_serial(dev, results, ref, root, dset):
     """The dataset CLI's serial per-trial path (``run_dataset.main
-    --run_monocular --clean --trials 3``, no ``--batched``) on phase 9's
+    --run_monocular --clean --trials 2``, no ``--batched``) on phase 9's
     tree: every trial alone at its own length, mode after mode, the
     physics-based mode in up to three attempts. Held against the JAX
     package's serial float32 run on the same input
     (``tests/data/jax_serial_f32.json``, ``port_tree``): the means as phase
     9 holds them (``agree_means``, on the saved objectives), each trial's
     accepted physics attempt equal to the JAX run's,
-    every JAX artifact present with its keys and shapes. Then the batched
+    every JAX artifact of those trials present with its keys and shapes
+    (``trial_artifacts``). Then the batched
     path on the same trials (s/trial), and one trial's ground-truth solve
     (one lane) and default solve (the 3-lane multistart, the 1-lane polish)
     under torch.profiler. Returns the launches per shape."""
@@ -1527,7 +1593,7 @@ def phase_serial(dev, results, ref, root, dset):
 
     out = {}
     odir = tempfile.mkdtemp(prefix="serial_")
-    paths = ref["trials"]
+    paths = ref["trials"][:SERIAL_TRIALS]
     cam = dio.load_metadata(os.path.join(root, paths[0]))["monocular_cam"]
     for p in paths:
         xy, lik, _ = dio.load_dlc_points(os.path.join(root, p, "dlc"))
@@ -1620,17 +1686,16 @@ def phase_serial(dev, results, ref, root, dset):
                                          attempts.values()):
             bad.append(("physics-based", "attempt", attempts))
         agree[label] = a
-    mine = artifacts(odir)
-    missing = [p for p in ref["artifacts"] if p not in mine]
-    differ = [p for p, v in ref["artifacts"].items()
-              if p in mine and mine[p] != v]
-    agree["artifacts"] = {"jax": len(ref["artifacts"]), "port": len(mine),
+    mine, theirs = artifacts(odir), trial_artifacts(ref["artifacts"], paths)
+    missing = [p for p in theirs if p not in mine]
+    differ = [p for p, v in theirs.items() if p in mine and mine[p] != v]
+    agree["artifacts"] = {"jax": len(theirs), "port": len(mine),
                           "missing": missing, "differ": differ}
-    log(f"# serial agree: artifacts: JAX {len(ref['artifacts'])}, port "
+    log(f"# serial agree: artifacts: JAX {len(theirs)}, port "
         f"{len(mine)}, missing {missing[:5]} ({len(missing)}), differ "
         f"{differ[:5]} ({len(differ)})")
     for p in differ[:3]:
-        log(f"# serial agree: {p}: port {mine[p]} jax {ref['artifacts'][p]}")
+        log(f"# serial agree: {p}: port {mine[p]} jax {theirs[p]}")
     out["agree"] = agree
     if bad or missing or differ:
         raise AssertionError(f"the serial CLI disagrees with the JAX run: "
@@ -1675,6 +1740,10 @@ def phase_serial(dev, results, ref, root, dset):
 
 # -- phase 11: the force-plate pipeline --------------------------------------
 
+# phase 11 runs the first two force-plate trials (of 5): 92 % of its wall
+# is the two 180-step kinetic solves of each trial, and the smoke's limit
+# leaves room for two next to phases 12 and 13
+KINETIC_TRIALS = 2
 KINETIC_STAGE_DIRS = (("kinematic", "fte_kinematic"),
                       ("kinetic", "fte_kinetic"), ("grf", "fte_grf"))
 TOL_STATIC_GRF = 1e-3    # body weights, frame by frame, same trajectory
@@ -1820,16 +1889,18 @@ def kinetic_kernel_check(dev, root, odir, paths):
     return rows
 
 
-def static_grf_same_input(dev, root, ref):
+def static_grf_same_input(dev, root, ref, paths):
     """The port's static GRF solver on the card in float64, on the JAX
-    float64 run's saved kinematic trajectories with the JAX run's stances
-    (pruned, and the contact files' own), against the JAX run's static
-    GRFs: the largest difference per trial in body weights."""
+    float64 run's saved kinematic trajectories of the trials ``paths`` with
+    the JAX run's stances (pruned, and the contact files' own), against the
+    JAX run's static GRFs: the largest difference per trial in body
+    weights."""
     from cheetah_pose_estimation_tpu_torch.pipeline import estimator
     from cheetah_pose_estimation_tpu_torch.solver import static_grf
 
     out = {}
-    for p, q in ref["kinematic_q"].items():
+    for p in paths:
+        q = ref["kinematic_q"][p]
         est = estimator.init_trajectory(root, p, p.split(os.sep)[-2],
                                         kinetic_dataset=True)
         est.q = np.asarray(q, np.float64)
@@ -1874,11 +1945,17 @@ def phase_kinetic(dev, results, ref):
     out = {}
     work = tempfile.mkdtemp(prefix="kinetic_")
     root, odir = os.path.join(work, "videos"), os.path.join(work, "out")
-    paths = ref["trials"]
+    paths = ref["trials"][:KINETIC_TRIALS]
 
-    # 1. the tree, held against the JAX rendering and the reference's input
+    # 1. the tree (its first KINETIC_TRIALS trials), held against the JAX
+    # rendering and the reference's input
     t0 = time.perf_counter()
-    made = run_dataset.materialize_synthetic_kinetic_testset(root)
+    kset = run_dataset.KINETIC_SET
+    run_dataset.KINETIC_SET = kset[:KINETIC_TRIALS]
+    try:
+        made = run_dataset.materialize_synthetic_kinetic_testset(root)
+    finally:
+        run_dataset.KINETIC_SET = kset
     out["render_s"] = time.perf_counter() - t0
     if made != paths:
         raise AssertionError(f"rendered {made}, the reference has {paths}")
@@ -1978,7 +2055,7 @@ def phase_kinetic(dev, results, ref):
                                         kinematic_model=False)
         gz, _ = estimator.estimate_static_grf(est, out_dir_prefix=odir)
         static[p] = {"grf_z_sum": float(gz.sum())}
-    same = static_grf_same_input(dev, root, ref["f64"])
+    same = static_grf_same_input(dev, root, ref["f64"], paths)
     for p in paths:
         static[p]["same_input"] = same[p]
         log(f"# kinetic: static GRF {p}: GRFz over the stance frames "
@@ -2054,7 +2131,8 @@ def phase_kinetic(dev, results, ref):
     if worst_static > TOL_STATIC_GRF:
         bad.append(("static_grf", worst_static))
     mine = artifacts(odir)
-    theirs = ref["f64"]["artifacts"]
+    theirs = {k: v for k, v in ref["f64"]["artifacts"].items()
+              if any(k.startswith(p + os.sep) for p in paths)}
     missing = [p for p in theirs if p not in mine]
     differ = [p for p, v in theirs.items() if p in mine and mine[p] != v]
     agree["artifacts"] = {"jax": len(theirs), "port": len(mine),
@@ -2137,6 +2215,535 @@ def phase_agree(ctx, rows_kernel, results):
                              f"vs jax {d_jax:.4f} (limit {TOL_MPJPE})")
 
 
+# -- phases 12 and 13: the AcinoSet and analysis flags ----------------------
+
+ACINOSET_TRIALS = 4       # jules flick2, flick1 (with PPMs), phantom run, run1_2
+ACINOSET_MODES = ("ground-truth", "default", "data-driven")
+TOL_ANALYSIS = 0.01       # distance and view angle against JAX's, relative
+LINESCAN_PROFILE_STEPS = 10   # the profiled window of the widest line-scan
+
+
+# How phase 12's tree and results are recorded, the same for both packages:
+# tests/data/jax_acinoset_reference.py imports these three.
+
+def render_acinoset_tree(rd, root, n_trials=ACINOSET_TRIALS):
+    """The first ``n_trials`` trials of the synthetic test set, rendered
+    into ``root`` by ``rd.materialize_synthetic_testset`` (``rd``: either
+    package's ``run_dataset``) exactly as it renders them, the flick trials
+    with their pairwise pseudo-measurements (``write_trial_dir(
+    write_ppm=True)``). Returns the trials' paths."""
+    write, test_set = rd.syn.write_trial_dir, rd.TEST_SET
+
+    def write_flick_ppm(trial, root_dir, data_path, **kw):
+        return write(trial, root_dir, data_path,
+                     write_ppm="flick" in data_path, **kw)
+
+    rd.syn.write_trial_dir = write_flick_ppm
+    rd.TEST_SET = test_set[:n_trials]
+    try:
+        return rd.materialize_synthetic_testset(root)
+    finally:
+        rd.syn.write_trial_dir, rd.TEST_SET = write, test_set
+
+
+def ppm_digest(trial_dir):
+    """Per camera, ``digest`` of a trial's pairwise pickles
+    (``dlc_pw/cam*.pickle``): the part poses and offsets as the pixels, the
+    part likelihoods as the likelihoods; {} without the folder."""
+    import pickle
+    from glob import glob
+
+    out = {}
+    for p in sorted(glob(os.path.join(trial_dir, "dlc_pw", "*.pickle"))):
+        with open(p, "rb") as f:
+            frames = pickle.load(f)
+        flat = np.stack([np.asarray(fr["pose"]) for fr in frames])
+        pws = np.stack([np.asarray(fr["pws"]) for fr in frames])
+        out[os.path.basename(p)] = digest(
+            np.concatenate([flat[:, 0::3].ravel(), flat[:, 1::3].ravel(),
+                            pws.ravel()]), flat[:, 2::3])
+    return out
+
+
+def acinoset_scores(root, odir, paths):
+    """Per mode of ``ACINOSET_MODES``, per trial with a saved solution:
+    MPJPE and MPE (mm) against the synthetic truth
+    (``synthetic_gt.pickle``), the saved objective, and whether q is
+    finite."""
+    import pickle
+
+    out = {}
+    for m in ACINOSET_MODES:
+        for p in paths:
+            with open(os.path.join(root, p, "metadata.json"),
+                      encoding="utf-8") as fh:
+                cam = json.load(fh)["monocular_cam"]
+            f = os.path.join(odir, p, CLI_DIRS[m].format(c=cam),
+                             "fte.pickle")
+            if not os.path.exists(f):
+                continue
+            with open(f, "rb") as fh:
+                d = pickle.load(fh)
+            with open(os.path.join(root, p, "synthetic_gt.pickle"),
+                      "rb") as fh:
+                true = np.asarray(pickle.load(fh)["positions"], np.float64)
+            pos = np.asarray(d["positions"], np.float64)[:len(true)]
+            cen = lambda a: a - a.mean(1, keepdims=True)
+            out.setdefault(m, {})[p] = {
+                "mpjpe_vs_truth": float(np.linalg.norm(
+                    cen(pos) - cen(true), axis=2).mean() * 1e3),
+                "mpe_vs_truth": float(np.linalg.norm(
+                    pos - true, axis=2).mean() * 1e3),
+                "obj_cost": float(d["obj_cost"]),
+                "finite": bool(np.isfinite(d["q"]).all())}
+    return out
+
+
+def sweep_errors(root, odir, paths, cams=range(6)):
+    """Per trial, camera and monocular mode of the every-camera sweep under
+    ``odir``: the MPE (mm) against the multi-view solve, as
+    ``distance_vs_error`` takes it, and its parts: the mean offset's
+    component along the camera's line of sight to the multi-view CoM
+    (``depth_mm``, positive away from the camera), the rest of that offset
+    (``across_mm``), and the MPE left once the mean offset is taken away
+    (``rest_mm``: the trajectory's drift about its mean, and the pose)."""
+    import pickle
+
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+
+    def load(p, sub):
+        with open(os.path.join(odir, p, sub, "fte.pickle"), "rb") as fh:
+            return np.asarray(pickle.load(fh)["positions"], np.float64)
+
+    out = {}
+    for p in paths:
+        _, _, r_arr, t_arr, *_ = dio.find_scene_file(os.path.join(root, p))
+        gt = load(p, "fte_kinematic")
+        for cam in cams:
+            centre = -np.linalg.inv(r_arr[cam]) @ np.reshape(t_arr[cam], 3)
+            sight = gt.mean(axis=(0, 1)) - centre
+            sight /= np.linalg.norm(sight)
+            for m, sub in (("default", "fte_kinematic_orig"),
+                           ("data-driven", "fte_kinematic")):
+                pos = load(p, f"{sub}_{cam}")
+                n = min(len(pos), len(gt))
+                e = pos[:n] - gt[:n]
+                off = e.mean(axis=(0, 1))
+                out.setdefault(p, {}).setdefault(str(cam), {})[m] = {
+                    "mpe_mm": float(np.linalg.norm(e, axis=2).mean() * 1e3),
+                    "depth_mm": float(off @ sight * 1e3),
+                    "across_mm": float(np.linalg.norm(
+                        off - (off @ sight) * sight) * 1e3),
+                    "rest_mm": float(np.linalg.norm(
+                        e - off, axis=2).mean() * 1e3)}
+    return out
+
+
+def log_sweep_errors(errors, jax_errors):
+    """One line per (trial, camera) of ``sweep_errors``' readings, with
+    JAX's beside them on the trials ``jax_errors`` holds."""
+    for p, cams in errors.items():
+        for c, modes in cams.items():
+            line = "  ".join(
+                f"{m} MPE {e['mpe_mm']:.1f} (depth {e['depth_mm']:+.1f}, "
+                f"across {e['across_mm']:.1f}, rest {e['rest_mm']:.1f})"
+                + (f" JAX f64 MPE {jax_errors[p][c][m]['mpe_mm']:.1f} "
+                   f"(depth {jax_errors[p][c][m]['depth_mm']:+.1f})"
+                   if p in jax_errors else "")
+                for m, e in modes.items())
+            log(f"# analysis: {p} cam {c}: {line} mm")
+
+
+def phase_acinoset(dev, results, ref, dset):
+    """``run_dataset.main --run_acinoset --clean`` on the first
+    ``ACINOSET_TRIALS`` trials of the synthetic test set (the flicks with
+    their PPMs, ``render_acinoset_tree``), the tree's digest held against
+    the JAX package's own rendering and the reference run's input
+    (``tests/data/jax_acinoset_f64.json``). Each trial alone at its own
+    length through the ground-truth, default and data-driven modes (the
+    priors trained on ``dset``, phase 9's tables). Gate, against the JAX
+    float64 run on the same input: the ground-truth mode's mean MPJPE
+    against the truth within 2 %, over all trials and over the PPM flicks
+    alone; W = 3 on the flicks and 1 on the runs, on both sides;
+    ``validate_dataset`` equal to JAX's; every JAX artifact present with
+    its keys and shapes. The monocular modes are printed beside JAX
+    float64 and float32. Returns the launches per shape."""
+    import tempfile
+
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="acinoset_")
+    root, odir = os.path.join(work, "videos"), os.path.join(work, "out")
+
+    # 1. the tree, held against the JAX rendering and the reference's input
+    t0 = time.perf_counter()
+    paths = render_acinoset_tree(run_dataset, root)
+    out["render_s"] = time.perf_counter() - t0
+    if paths != ref["trials"]:
+        raise AssertionError(f"rendered {paths}, the reference has "
+                             f"{ref['trials']}")
+    tree_ok = True
+    for p in paths:
+        xy, lik, _ = dio.load_dlc_points(os.path.join(root, p, "dlc"))
+        mine = dict(digest(xy, lik), ppm=ppm_digest(os.path.join(root, p)))
+        checks = []
+        for r, tol in ((ref["tree"][p], TOL_PX),
+                       (ref["port_tree"][p], TOL_PX_SAME)):
+            pairs = [(mine, r)] + [(mine["ppm"][k], r["ppm"].get(k, {}))
+                                   for k in mine["ppm"]]
+            dpx = max(max(abs(a - b) for a, b in zip(
+                m["px_proj"], o.get("px_proj", [np.inf] * 4)))
+                for m, o in pairs)
+            checks.append((dpx, sorted(mine["ppm"]) == sorted(r["ppm"])
+                           and all(m["gate_md5"] == o.get("gate_md5")
+                                   for m, o in pairs) and dpx <= tol))
+        tree_ok &= all(ok for _, ok in checks)
+        log(f"# acinoset: tree {p} {mine['shape']} gated {mine['n_gated']}, "
+            f"PPM pickles {len(mine['ppm'])}: JAX tree |px proj diff| "
+            f"{checks[0][0]:.2e} ({'same' if checks[0][1] else 'DIFFERENT'})"
+            f", the reference run's input {checks[1][0]:.2e} "
+            f"({'same' if checks[1][1] else 'DIFFERENT'})")
+    log(f"# acinoset: tree rendered in {out['render_s']:.2f} s (host)")
+    if not tree_ok:
+        raise AssertionError("the AcinoSet tree differs from the JAX tree or "
+                             "from the reference run's input")
+
+    # 2. the main path: every trial, mode after mode, through the CLI
+    os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
+    cuda_banded.reset_launches()
+    report = {}
+    t0 = time.perf_counter()
+    with plain_solves_counted() as plain:
+        run_dataset.main(["--run_acinoset", "--clean", "--root_dir", root,
+                          "--out_dir_prefix", odir], report=report)
+        torch.cuda.synchronize()
+    out["cli_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    log(f"# acinoset: run_dataset.main {out['cli_s']:.2f} s, kernel "
+        f"launches {shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        raise AssertionError(f"the AcinoSet CLI ran plain banded solves on "
+                             f"the card: {plain}")
+    untimed = sorted(set(by_shape) - set(SERIAL_SHAPES + ACINOSET_SHAPES))
+    if untimed:
+        raise AssertionError(f"shapes not timed in phase 3: {untimed}")
+    scores = acinoset_scores(root, odir, paths)
+    bad, modes = [], {}
+    for m in ACINOSET_MODES:
+        rep = report["acinoset"][m]
+        if sorted(rep["trials"]) != sorted(paths):  # in the tree's order
+            raise AssertionError(f"mode {m} ran {rep['trials']}")
+        rows, launches = [], {}
+        for p in paths:
+            t = rep["per_trial"][p]
+            if not sum(t["launches"].values()):
+                raise AssertionError(f"{m} {p} did not launch the kernel")
+            for k, v in t["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            w_jax = ref["f64"]["modes"][m][p]["W"]
+            want = 3 if "flick" in p else 1
+            if not (t["W"] == w_jax == want):
+                bad.append((m, p, "W", t["W"], w_jax))
+            if not scores[m][p]["finite"]:
+                bad.append((m, p, "non-finite q"))
+            rows.append(dict(scores[m][p], wall_s=t["wall_s"], W=t["W"],
+                             lm_steps=int(sum(t["launches"].values())),
+                             launches_by_shape=shape_keys(t["launches"])))
+        modes[m] = {"s_per_trial": float(np.mean([r["wall_s"]
+                                                   for r in rows])),
+                    "lm_steps": int(sum(launches.values())),
+                    "launches_by_shape": shape_keys(launches),
+                    "per_trial": dict(zip(paths, rows))}
+        log(f"# acinoset: mode {m}: {modes[m]['s_per_trial']:.4f} s/trial, "
+            f"LM steps {modes[m]['lm_steps']}, launches "
+            f"{modes[m]['launches_by_shape']}")
+        for p, r in zip(paths, rows):
+            j64, j32 = ref["f64"]["modes"][m][p], ref["f32"]["modes"][m][p]
+            log(f"# acinoset: {m} {p} W {r['W']} {r['wall_s']:.3f} s, LM "
+                f"steps {r['lm_steps']} {r['launches_by_shape']}, MPJPE "
+                f"{r['mpjpe_vs_truth']:.2f} mm (jax f64 "
+                f"{j64['mpjpe_vs_truth']:.2f}, f32 "
+                f"{j32['mpjpe_vs_truth']:.2f}), MPE {r['mpe_vs_truth']:.2f} "
+                f"mm (jax f64 {j64['mpe_vs_truth']:.2f}, f32 "
+                f"{j32['mpe_vs_truth']:.2f}), objective "
+                f"{r['obj_cost']:.6g} (jax f64 {j64['obj_cost']:.6g})")
+    out["modes"] = modes
+
+    # 3. the gate: the well-posed multi-view mode against JAX float64,
+    # nothing set aside; the monocular modes printed beside it
+    agree = {}
+    flicks = [p for p in paths if "flick" in p]
+    for m in ACINOSET_MODES:
+        for label, sub in (("all", paths), ("PPM flicks", flicks)):
+            port = float(np.mean([modes[m]["per_trial"][p]["mpjpe_vs_truth"]
+                                  for p in sub]))
+            j64, j32 = (float(np.mean([ref[r]["modes"][m][p][
+                "mpjpe_vs_truth"] for p in sub])) for r in ("f64", "f32"))
+            rel = (port - j64) / j64
+            gated = m == "ground-truth"
+            ok = abs(rel) <= TOL_MPJPE
+            agree[f"{m} {label}"] = {"port": port, "jax_f64": j64,
+                                     "jax_f32": j32, "rel_f64": rel,
+                                     "gated": gated, "ok": ok}
+            log(f"# acinoset agree: {m} mean MPJPE vs truth ({label}) port "
+                f"{port:.3f} jax_f64 {j64:.3f} (rel {rel:+.4f}"
+                + (f", bar ±{TOL_MPJPE}: {'ok' if ok else 'FAILED'})"
+                   if gated else ", printed only)")
+                + f" jax_f32 {j32:.3f}")
+            if gated and not ok:
+                bad.append((m, label, rel))
+    valid_ok = report["validate"] == ref["f64"]["validate"]
+    log(f"# acinoset agree: validate_dataset {report['validate']} "
+        f"({'same' if valid_ok else 'DIFFERENT'} as JAX f64's)")
+    if not valid_ok:
+        bad.append(("validate", report["validate"]))
+    mine = artifacts(odir)
+    theirs = {k: v for k, v in ref["f64"]["artifacts"].items()
+              if not k.endswith(".h5")}
+    missing = [p for p in theirs if p not in mine]
+    differ = [p for p, v in theirs.items() if p in mine and mine[p] != v]
+    agree["artifacts"] = {"jax": len(theirs), "port": len(mine),
+                          "missing": missing, "differ": differ}
+    log(f"# acinoset agree: artifacts: JAX {len(theirs)}, port {len(mine)}, "
+        f"missing {missing[:5]} ({len(missing)}), differ {differ[:5]} "
+        f"({len(differ)})")
+    out["agree"] = agree
+    results["acinoset"] = out
+    if bad or missing or differ:
+        raise AssertionError(f"the AcinoSet CLI disagrees with the JAX run: "
+                             f"{bad}, missing {missing[:5]}, differ "
+                             f"{differ[:5]}")
+    return by_shape
+
+
+@contextlib.contextmanager
+def widest_linescan():
+    """Record the inputs (q, batched, rays) of the widest depth line-scan
+    made inside the block (the data-driven mode's, 7 x B lanes), into the
+    yielded dict; the line-scans run as they would."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import depth_anchor
+
+    rec = {}
+    orig = depth_anchor.make_depth_linescan
+
+    def make(subject, *a, **k):
+        scan = orig(subject, *a, **k)
+
+        def run(q_in, batched, rays, *aa, **kk):
+            if q_in.shape[0] > rec.get("B", 0):
+                rec.update(B=q_in.shape[0], q=q_in, batched=batched,
+                           rays=np.asarray(rays), subject=subject)
+            return scan(q_in, batched, rays, *aa, **kk)
+        return run
+
+    depth_anchor.make_depth_linescan = make
+    try:
+        yield rec
+    finally:
+        depth_anchor.make_depth_linescan = orig
+
+
+def linescan_problem(rec):
+    """The widest line-scan's own problem, as ``make_depth_linescan``
+    builds it: its judge solver's model, and every trial shifted by each
+    of ``SCAN_SHIFTS`` along its camera rays (7 x B lanes)."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import depth_anchor
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+
+    q, rays = rec["q"], torch.as_tensor(rec["rays"], dtype=rec["q"].dtype,
+                                        device=rec["q"].device)
+    qks = torch.cat([torch.cat([q[..., :3] + s * rays, q[..., 3:]], -1)
+                     for s in depth_anchor.SCAN_SHIFTS])
+    K = len(depth_anchor.SCAN_SHIFTS)
+    rep = kin.map_data(lambda x: torch.cat([x] * K), rec["batched"])
+    fte = kin.KinematicFTE(kin.KinematicConfig(fisheye=True, robust=True),
+                           rec["subject"])
+    return fte, qks, rep
+
+
+def phase_analysis(dev, results, ref, root):
+    """``run_dataset.main --run_analysis --clean --batched`` on phase 9's
+    10-trial tree: the multi-view ground truth of each trial, then every
+    (trial, camera) combination as one lane of the default and data-driven
+    modes (60 lanes in two subject groups, 36 and 24; the data-driven
+    line-scan at 7 x 36 = 252 and 7 x 24 = 168 lanes, more than the card
+    has SMs), then ``distance_vs_error`` and ``example_robustness``. Gate:
+    every expected solution present and finite; ``dist_vs_error.csv`` with
+    JAX's columns; each (trial, camera)'s distance and view angle within 1
+    % of JAX's on the JAX float64 ground truth
+    (``tests/data/jax_acinoset_f64.json``, ``analysis``). Then the kernel
+    against its plain version on the widest line-scan's own normal
+    systems (lam = 1e-2, scaled as ``gn.scaled_system`` does; rel error <=
+    7e-4), a NaN lane of the second wave isolated, and a window of
+    ``LINESCAN_PROFILE_STEPS`` LM steps of that line-scan under
+    torch.profiler. Printed only: each (trial, camera)'s MPE against the
+    multi-view solve and its parts (``sweep_errors``), beside JAX
+    float64's on the trials of ``analysis["sweep"]``. Returns (launches
+    per shape, worst rel err, worst abs err)."""
+    import csv
+    import pickle
+    import tempfile
+
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+    from cheetah_pose_estimation_tpu_torch.solver import gn
+
+    out = {}
+    odir = os.path.join(tempfile.mkdtemp(prefix="analysis_"), "out")
+    paths = [os.path.join(d, c, t) for c, d, t in run_dataset.TEST_SET]
+
+    # 1. the main path: the every-camera sweep and the analysis
+    cuda_banded.reset_launches()
+    report = {}
+    t0 = time.perf_counter()
+    with plain_solves_counted() as plain, widest_linescan() as scan_in:
+        run_dataset.main(["--run_analysis", "--clean", "--batched",
+                          "--root_dir", root, "--out_dir_prefix", odir],
+                         report=report)
+        torch.cuda.synchronize()
+    out["cli_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    log(f"# analysis: run_dataset.main {out['cli_s']:.2f} s, kernel "
+        f"launches {shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        raise AssertionError(f"the analysis ran plain banded solves on the "
+                             f"card: {plain}")
+    untimed = sorted(set(by_shape) - set(CLI_SHAPES + ANALYSIS_SHAPES))
+    if untimed:
+        raise AssertionError(f"shapes not timed in phase 3: {untimed}")
+    if not all(by_shape.get(s) for s in ANALYSIS_SHAPES[-2:]):
+        raise AssertionError(f"the line-scans did not launch the kernel at "
+                             f"{ANALYSIS_SHAPES[-2:]}")
+    prev, modes = {}, {}
+    for m in ("ground-truth", "default", "data-driven"):
+        rep = report["analysis"][m]
+        snap = rep["launches"]
+        launches = {k: v - prev.get(k, 0) for k, v in snap.items()
+                    if v - prev.get(k, 0)}
+        prev = snap
+        modes[m] = {"lanes": len(rep["trials"]), "wall_s": rep["wall_s"],
+                    "solve_s": rep["solve_s"],
+                    "lm_steps": int(sum(launches.values())),
+                    "launches_by_shape": shape_keys(launches)}
+        log(f"# analysis: mode {m}: {modes[m]['lanes']} lanes, wall "
+            f"{rep['wall_s']:.2f} s, solve {rep['solve_s']:.2f} s, LM steps "
+            f"{modes[m]['lm_steps']}, launches "
+            f"{modes[m]['launches_by_shape']}")
+        if not launches:
+            raise AssertionError(f"mode {m} did not launch the kernel")
+    out["modes"] = modes
+
+    # 2. the solutions, the table and the distances
+    bad, dist_err = [], 0.0
+    expected = [os.path.join(p, "fte_kinematic") for p in paths] + [
+        os.path.join(p, f"{sub}_{c}") for p in paths for c in range(6)
+        for sub in ("fte_kinematic_orig", "fte_kinematic")]
+    for e in expected:
+        f = os.path.join(odir, e, "fte.pickle")
+        if not os.path.exists(f):
+            bad.append(("missing", e))
+            continue
+        with open(f, "rb") as fh:
+            if not np.isfinite(pickle.load(fh)["q"]).all():
+                bad.append(("non-finite", e))
+    with open(os.path.join(odir, "dist_vs_error.csv"), encoding="utf-8") as f:
+        table = list(csv.reader(f))
+    rows = report["dist_vs_error"]
+    if tuple(table[0]) != run_dataset.DIST_COLUMNS or \
+            not len(table) - 1 == len(rows) == 120:
+        bad.append(("dist_vs_error.csv", table[0], len(table) - 1))
+    for r in rows:
+        jd, ja = ref["analysis"]["distance"][r["trial"]][str(r["cam"])]
+        e = max(abs(r["distance_m"] - jd) / jd, abs(r["angle_deg"] - ja)
+                / max(ja, 1e-12))
+        dist_err = max(dist_err, e)
+    if dist_err > TOL_ANALYSIS:
+        bad.append(("distance/angle vs JAX f64", dist_err))
+    mpe = {m: float(np.mean([r["mpe_mm"] for r in rows if r["mode"] == m]))
+           for m in ("default", "data-driven")}
+    errors = sweep_errors(root, odir, paths)
+    log_sweep_errors(errors, ref["analysis"]["sweep"]["errors"])
+    pdfs = {n: os.path.exists(os.path.join(odir, n))
+            for n in ("dist_vs_error.pdf", "example-cam-robustness.pdf")}
+    out.update(expected=len(expected), rows=len(rows), mean_mpe_mm=mpe,
+               sweep_errors=errors,
+               distance_max_rel_err=dist_err,
+               robustness=report["robustness"], pdfs_written=pdfs)
+    log(f"# analysis: {len(expected)} solutions expected, "
+        f"{len([b for b in bad if b[0] in ('missing', 'non-finite')])} "
+        f"missing or non-finite; dist_vs_error rows {len(rows)}; mean MPE "
+        f"vs the multi-view solve over the 60 combinations {mpe} (printed "
+        f"only); distance and angle vs JAX f64 ground truth, largest rel "
+        f"err {dist_err:.2e} (bar {TOL_ANALYSIS}); example_robustness "
+        f"{report['robustness']} (no physics-based solutions: "
+        f"--run_analysis solves the default and data-driven modes); PDFs "
+        f"written {pdfs}")
+
+    # 3. the kernel on the widest line-scan's own normal systems, and a
+    # NaN lane of the second wave
+    fte, qks, rep = linescan_problem(scan_in)
+    g, H = fte._normal(qks, rep, 1.0)
+    B = qks.shape[0]
+    Hs, rhs, _ = gn.scaled_system(g, H, torch.full((B,), 1e-2, device=dev),
+                                  1e-8)
+    d32, l32, r32 = (x.contiguous() for x in (Hs.diag, Hs.lower, rhs))
+    del g, H, Hs
+    x = cuda_banded.solve(d32, l32, r32)
+    torch.cuda.synchronize()
+    ref64 = cuda_banded.solve_reference(d32.double(), l32.double(),
+                                        r32.double())
+    abs_err = float((x.double() - ref64).abs().max())
+    kern = {"systems": "data-driven line-scan", "B": B, "N": qks.shape[1],
+            "rel_err": abs_err / float(ref64.abs().max()),
+            "max_abs_err": abs_err}
+    del ref64
+    log(f"# analysis: kernel {kern}")
+    if not (torch.isfinite(x).all() and kern["rel_err"] <= TOL_REL):
+        raise AssertionError(f"kernel on the line-scan systems: {kern}")
+
+    lane = min(200, B - 1)      # past the first wave of 132 CTAs
+
+    def all_nan(d, l, r):
+        d[lane].fill_(float("nan"))
+
+    check_nan_lane(cuda_banded.solve, d32, l32, r32, lane, all_nan,
+                   f"second-wave (lane {lane} of {B}) all-NaN")
+    out["kernel"] = kern
+    del d32, l32, r32, x
+
+    # 4. a window of LM steps of the widest line-scan under
+    # torch.profiler, against three unprofiled runs of it (the CLI run
+    # warmed the solver's shapes up)
+    window = fte.make_solver(stages=((1.0, LINESCAN_PROFILE_STEPS),),
+                             driver="fixed")
+    window(qks, rep)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window(qks, rep)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    cuda_banded.reset_launches()
+    prof = profiled(lambda: window(qks, rep), float(np.mean(walls)))
+    prof["lm_steps"] = cuda_banded.launches
+    prof["unprofiled_walls_s"] = walls
+    prof["device_events_per_step"] = prof["device_kernel_launches"] / \
+        prof["lm_steps"]
+    prof["device_idle_share"] = 1.0 - prof["device_busy_share"]
+    log(f"# analysis profile: a {prof['lm_steps']}-step window of the "
+        f"line-scan at {B} lanes (unprofiled "
+        f"{[round(w * 1e3, 2) for w in walls]} ms) {prof}")
+    out["profile_linescan_window"] = prof
+    results["analysis"] = out
+    if bad:
+        raise AssertionError(f"the analysis failed its checks: {bad[:8]}")
+    return by_shape, kern["rel_err"], kern["max_abs_err"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -2192,8 +2799,14 @@ def main():
         kinetic_ref = json.load(f)
     kinetic_shapes, kin_rel, kin_abs = phase_kinetic(dev, results,
                                                      kinetic_ref)
-    worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel)
-    worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs)
+    with open(os.path.join(HERE, "tests", "data", "jax_acinoset_f64.json"),
+              encoding="utf-8") as f:
+        acinoset_ref = json.load(f)
+    acinoset_shapes = phase_acinoset(dev, results, acinoset_ref, dset)
+    analysis_shapes, an_rel, an_abs = phase_analysis(dev, results,
+                                                     acinoset_ref, root)
+    worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel, an_rel)
+    worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs, an_abs)
 
     main_shape = timed[0]                     # (10, 64): the finish's shape
     keys = ("kernel_ms", "plain_ms", "cr_ms", "library_ms", "bound_ms",
@@ -2205,13 +2818,16 @@ def main():
         "replaces": "cheetah_pose_estimation_tpu/ops/pallas_banded.py:262,309",
         "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values())
         + sum(physics_shapes.values()) + sum(cli_shapes.values())
-        + sum(serial_shapes.values()) + sum(kinetic_shapes.values()),
+        + sum(serial_shapes.values()) + sum(kinetic_shapes.values())
+        + sum(acinoset_shapes.values()) + sum(analysis_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
                              "physics": shape_keys(physics_shapes),
                              "cli": shape_keys(cli_shapes),
                              "serial_cli": shape_keys(serial_shapes),
-                             "kinetic_cli": shape_keys(kinetic_shapes)},
+                             "kinetic_cli": shape_keys(kinetic_shapes),
+                             "acinoset": shape_keys(acinoset_shapes),
+                             "analysis": shape_keys(analysis_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

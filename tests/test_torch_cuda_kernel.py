@@ -14,7 +14,9 @@ every lane that is positive definite by a float32 margin is finite
 the plain float32 substitution (``solve_reference``) on the same inputs.
 The force-plate pipeline's shape, 1x50, is held on a random system and on
 a torque-anchored kinetic normal system (the GRF re-estimation's, damped at
-lam = 1e-2 and scaled as ``gn.scaled_system`` does).
+lam = 1e-2 and scaled as ``gn.scaled_system`` does). The every-camera
+sweep's line-scan shape, 252x64, runs in two waves of CTAs: a NaN lane of
+the second wave stays in its lane.
 """
 import pytest
 import torch
@@ -58,6 +60,27 @@ def test_kernel_nan_lane_and_rejects():
         cb.solve(diag.double(), lower.double(), rhs.double())
     with pytest.raises(cb.KernelInputError):
         cb.solve(diag[..., :50, :50].contiguous(), lower, rhs)
+
+
+@pytest.mark.gpu
+def test_kernel_two_waves_252x64_nan_lane_in_second_wave():
+    """252 systems, more than the card's 132 SMs (one system per SM at a
+    time, so two waves): every lane against the plain version, and a lane
+    of the second wave poisoned with NaN comes back NaN alone, the other
+    lanes bit-identical."""
+    dev = _cuda()
+    B, N, lane = 252, 64, 200
+    diag, lower, rhs = cb.random_systems(B, N, B * 1000 + N, dev)
+    ok = cb.solve(diag, lower, rhs)
+    torch.cuda.synchronize()
+    ref = cb.solve_reference(diag.double(), lower.double(), rhs.double())
+    assert float((ok.double() - ref).abs().max() / ref.abs().max()) < 7e-4
+    diag[lane].fill_(float("nan"))
+    x = cb.solve(diag, lower, rhs)
+    torch.cuda.synchronize()
+    others = [i for i in range(B) if i != lane]
+    assert torch.isnan(x[lane]).all()
+    assert torch.equal(x[others], ok[others])
 
 
 @pytest.mark.gpu

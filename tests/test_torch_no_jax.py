@@ -8,7 +8,8 @@ set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
 it (``run_monocular``, the default and physics-based modes, tiny
 schedules, priors trained on small procedural tables), and import the
 force-plate analysis and the static GRF solver and run the solver on a
-short trajectory; then check
+short trajectory, and write, read and assemble the first trial's pairwise
+pseudo-measurements (``data/ppm``); then check
 ``sys.modules``. No
 module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
 own copies of the tables it needs."""
@@ -128,6 +129,15 @@ SCRIPT = textwrap.dedent("""
         torch.ones(6, 4, dtype=torch.float64), params.get_subject("shiraz"))
     assert gz.shape == (6, 4) and torch.isfinite(gxy).all()
     assert sorted(results.check_grf(gxy.numpy())) == ["n_invalid", "ok"]
+    from cheetah_pose_estimation_tpu_torch.data import ppm
+    est = estimator.init_trajectory(tmp, os.path.join(d, c, t), c)
+    pose, plik, pws = ppm.synthesize_ppm(xy[:, 0], lik[:, 0], seed=0)
+    ppm.save_ppm_pickle(os.path.join(tmp, "pw.pickle"), pose, plik, pws)
+    meas, w = ppm.assemble_ppm_measurements(
+        xy, lik, [ppm.load_ppm_pickle(os.path.join(tmp, "pw.pickle"))] * 6,
+        0, 40)
+    assert meas.shape == (40, 6, 24, 2, 3) and w.shape == (40, 6, 24, 3)
+    assert np.array_equal(meas[..., 0], est.data.meas[..., 0])
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                          "cheetah_pose_estimation_tpu"))

@@ -51,6 +51,13 @@ def test_noise_tables_equal_jax():
                               jnoise.acc_model_weights(floor))
 
 
+def test_ppm_tables_equal_jax():
+    assert tnoise.N_DLC_PARTS == jnoise.N_DLC_PARTS
+    assert tnoise.DLC_MARKER_INDEX == jnoise.DLC_MARKER_INDEX
+    assert tnoise.PAIRWISE_GRAPH == jnoise.PAIRWISE_GRAPH
+    assert list(tnoise.PAIRWISE_GRAPH) == list(jnoise.PAIRWISE_GRAPH)
+
+
 def test_resolve_device_default_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -91,3 +98,21 @@ def test_physics_entry_points_need_the_card_or_cpu(monkeypatch):
                                              device="cpu")
     assert qw.device.type == "cpu" and kbat.stance.device.type == "cpu"
     assert kbat.stance.shape == (1, 12, 4)
+
+
+@pytest.mark.parametrize("flag", ["--run_acinoset", "--run_analysis"])
+def test_dataset_flags_need_the_card_or_cpu(monkeypatch, tmp_path, flag):
+    """The AcinoSet and analysis flags and their entry points take the
+    card by default and raise without one, before solving anything."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    root, out = str(tmp_path / "videos"), str(tmp_path / "out")
+    fn = (run_dataset.run_acinoset if flag == "--run_acinoset"
+          else run_dataset.run_monocular_all)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn(root, out)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        run_dataset.main([flag, "--clean", "--root_dir", root,
+                          "--out_dir_prefix", out])
+    # on the CPU, an empty root solves nothing
+    assert fn(root, out, device="cpu") in ([], None)
