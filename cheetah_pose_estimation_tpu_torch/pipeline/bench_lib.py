@@ -54,18 +54,24 @@ def empty_priors(N: int):
 
 def build_monocular_problem(q_gt: np.ndarray, subject_name: str, fps: float,
                             cam_idx: Optional[int] = 2, seed: int = 0,
-                            n_cams: int = 6, noise_px: float = 1.5
+                            n_cams: int = 6, noise_px: float = 1.5,
+                            occlusion_rate: float = 0.0,
+                            confusion_rate: float = 0.0
                             ) -> Tuple[kin.KinematicData, np.ndarray,
                                        syn.SyntheticTrial]:
     """One trial's monocular problem (numpy leaves), its q0 and the
-    synthetic trial it was rendered from."""
+    synthetic trial it was rendered from; ``occlusion_rate`` and
+    ``confusion_rate`` set the correlated DLC failures
+    (``synthetic.corrupt_dlc``)."""
     subject = P.get_subject(subject_name)
     markers = syn.fk_markers_np(q_gt, subject)
     scene = syn.ring_cameras(markers.mean(axis=(0, 1)), n_cams=n_cams,
                              fps=fps, seed=seed)
     trial = syn.synthesize(q_gt, subject, scene, noise_px=noise_px,
                            outlier_frac=0.02, seed=seed,
-                           subject_name=subject_name)
+                           subject_name=subject_name,
+                           occlusion_rate=occlusion_rate,
+                           confusion_rate=confusion_rate)
     w = syn.gated_weights(trial)
     q0 = init.initialize_trajectory(trial.meas, w, scene.K, scene.D,
                                     scene.R, scene.t, subject,

@@ -5,14 +5,17 @@ Port of part of ``cheetah_pose_estimation_tpu/pipeline/results.py``: 2D
 reprojection error against hand labels (on the CSV tables, without pandas),
 the contact file's per-role stance table, stance-normalised gait curves
 (joint angles, torques, power per limb role), the friction-polygon check of
-solved GRFs, the torque and gait plots, and the per-camera robustness of
-one trial (``--run_analysis``). The plots import matplotlib when called
+solved GRFs, the torque and gait plots, the per-camera robustness of
+one trial (``--run_analysis``), and the studies' figures (the ablation
+bars, the model-selection and grid-search curves; the studies' CSVs and
+pickle are read without pandas). The plots import matplotlib when called
 and write nothing where it is not installed; every metric is also returned
-as data. The rest of the JAX module (the studies' figures, the GRF error
-against force plates, the LCP and contact checks) is not ported.
+as data. The rest of the JAX module (the GRF error against force plates,
+the LCP and contact checks, the animated torque plot) is not ported.
 """
 from __future__ import annotations
 
+import csv
 import glob
 import json
 import os
@@ -311,3 +314,183 @@ def example_robustness(dir_prefix: str,
         fig.savefig(out, bbox_inches="tight")
         plt.close(fig)
     return vals
+
+
+def _read_rows(path: str) -> List[Dict[str, str]]:
+    """The rows of a CSV table with a header line, as dicts of strings."""
+    with open(path, encoding="utf-8", newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _num(v: str) -> float:
+    """A CSV field as pandas reads it into a float column (empty: NaN)."""
+    return float(v) if v != "" else float("nan")
+
+
+def _skipped(paths: List[str]) -> None:
+    print("matplotlib is not installed: skipped " + ", ".join(paths))
+
+
+# the ablation figure's scenarios and the configuration rows they read
+ABLATION_SCENARIOS = ("Default", "Pose", "Motion", "Pose + Motion")
+ABLATION_LABELS = ("neither", "no-motion", "no-pose", "both")
+
+
+def ablation_study(dir_prefix: str) -> Dict[str, Dict[str, List[float]]]:
+    """The ablation figure ``ablation-study.pdf`` in ``dir_prefix``:
+    grouped bars of MPE, MPJPE and CoM-velocity RMSE over the four prior
+    scenarios (``ABLATION_SCENARIOS``: no prior, the pose prior, the motion
+    prior, both) for the data-driven and physics-based families, from
+    ``data_driven_ablation_results.csv`` and
+    ``physics_based_ablation_results.csv`` there (a line names the PDF
+    when matplotlib is not installed). Returns {family: {column: the four
+    values}} (NaN for a missing configuration)."""
+    series = {}
+    for fam, name in (("data-driven", "data_driven_ablation_results.csv"),
+                      ("physics-based",
+                       "physics_based_ablation_results.csv")):
+        rows = {r["config"]: r for r in _read_rows(
+            os.path.join(dir_prefix, name))}
+        cols = [c for c in ("mpe", "mpjpe", "cvr")
+                if rows and c in next(iter(rows.values()))]
+        series[fam] = {c: [_num(rows[l][c]) if l in rows else float("nan")
+                           for l in ABLATION_LABELS] for c in cols}
+    out = os.path.join(dir_prefix, "ablation-study.pdf")
+    plt = _pyplot()
+    if plt is None:
+        _skipped([out])
+        return series
+    import matplotlib.gridspec as gridspec
+
+    width = 0.25
+    x = np.arange(len(ABLATION_SCENARIOS))
+    fig = plt.figure(figsize=(16, 9), dpi=120)
+    gs = gridspec.GridSpec(2, 4)
+    for ax, col, ylabel in ((plt.subplot(gs[0, :2]), "mpe", "MPE (mm)"),
+                            (plt.subplot(gs[0, 2:]), "mpjpe", "MPJPE (mm)"),
+                            (plt.subplot(gs[1, 1:3]), "cvr", "CVR (m/s)")):
+        if col not in series["data-driven"]:
+            continue
+        ax.bar(x - width / 2, series["data-driven"][col], width,
+               label="Data-driven")
+        if col in series["physics-based"]:
+            ax.bar(x + width / 2, series["physics-based"][col], width,
+                   label="Physics-based")
+        ax.set_xticks(x)
+        ax.set_xticklabels(ABLATION_SCENARIOS)
+        ax.set_ylabel(ylabel)
+    fig.legend(("Data-driven", "Physics-based"), loc="lower right")
+    fig.savefig(out, bbox_inches="tight")
+    plt.close(fig)
+    return series
+
+
+def _mean_std(rows: List[Dict[str, str]], key: str, col: str):
+    """Per distinct value of ``key`` (sorted): the mean and the sample
+    standard deviation (ddof 1, NaN for one value) of ``col``."""
+    groups: Dict[float, List[float]] = {}
+    for r in rows:
+        groups.setdefault(_num(r[key]), []).append(_num(r[col]))
+    xs = sorted(groups)
+    return (xs, [float(np.mean(groups[x])) for x in xs],
+            [float(np.std(groups[x], ddof=1)) if len(groups[x]) > 1
+             else float("nan") for x in xs])
+
+
+def data_driven_analysis(dir_prefix: str,
+                         pose_components: Tuple[int, ...] =
+                         (1, 2, 3, 4, 5, 6, 7),
+                         window_sizes: Tuple[int, ...] =
+                         (1, 2, 3, 4, 5, 6, 7)) -> Dict:
+    """The model-selection curves of ``grid_search.pickle`` in
+    ``dir_prefix`` (``studies.model_selection_analysis``: GMM train and
+    validation likelihood against the component count, AR train and
+    validation RMSE and non-zero counts against the window, lasso then
+    least squares) as ``gmm_model_selection.pdf`` and
+    ``ar_model_selection.pdf``, and, where ``grid_search_results.csv``
+    exists, the reconstruction errors' mean and standard deviation over
+    the other grid axes against the component count and the window
+    (``gmm_components_vs_error.pdf``, ``ar_window_vs_error.pdf``). A line
+    names the PDFs when matplotlib is not installed. Returns the pickle's
+    dict."""
+    from ..utils import data_ops
+
+    data = data_ops.load_pickle(os.path.join(dir_prefix,
+                                             "grid_search.pickle"))
+    gs_csv = os.path.join(dir_prefix, "grid_search_results.csv")
+    names = ["gmm_model_selection.pdf", "ar_model_selection.pdf"] + (
+        ["gmm_components_vs_error.pdf", "ar_window_vs_error.pdf"]
+        if os.path.exists(gs_csv) else [])
+    plt = _pyplot()
+    if plt is None:
+        _skipped([os.path.join(dir_prefix, n) for n in names])
+        return data
+    nw = len(window_sizes)
+    fig = plt.figure(figsize=(16, 9), dpi=60)
+    plt.plot(pose_components, data["gmm_train_likelihood"], marker="o",
+             label="Train")
+    plt.plot(pose_components, data["gmm_validation_likelihood"], marker="o",
+             label="Test")
+    plt.xlabel("# Components")
+    plt.ylabel("Likelihood")
+    plt.legend()
+    fig.savefig(os.path.join(dir_prefix, names[0]), bbox_inches="tight")
+    plt.close(fig)
+
+    fig = plt.figure(figsize=(16, 9), dpi=60)
+    axd = fig.subplot_mosaic([["left", "right"], ["bottom", "bottom"]])
+    for ax, sl, title in (("left", slice(None, nw), "L1-norm"),
+                          ("right", slice(nw, None), "L2-norm")):
+        axd[ax].plot(window_sizes, data["lr_train_rmse"][sl], marker="o",
+                     label="Train")
+        axd[ax].plot(window_sizes, data["lr_validation_rmse"][sl],
+                     marker="o", label="Test")
+        axd[ax].set_title(title)
+        axd[ax].set_ylabel("Model RMSE")
+        axd[ax].set_xlabel("Window Size")
+        axd[ax].legend()
+    axd["bottom"].plot(window_sizes, data["lr_non_zeros"][:nw], marker="o",
+                       label="L1-norm")
+    axd["bottom"].plot(window_sizes, data["lr_non_zeros"][nw:], marker="o",
+                       label="L2-norm")
+    axd["bottom"].set_ylabel("# Non-zero Parameters")
+    axd["bottom"].set_xlabel("Window Size")
+    axd["bottom"].legend()
+    fig.savefig(os.path.join(dir_prefix, names[1]), bbox_inches="tight")
+    plt.close(fig)
+    if len(names) == 2:
+        return data
+
+    rows = _read_rows(gs_csv)
+
+    def band(ax, xs, mean, std, label=None):
+        mean, std = np.asarray(mean, float), np.asarray(std, float)
+        ax.plot(xs, mean, marker="o", label=label)
+        ax.fill_between(xs, mean - std, mean + std, alpha=0.1)
+
+    fig = plt.figure(figsize=(16, 9), dpi=60)
+    axd = fig.subplot_mosaic([["left", "right"]])
+    for ax, col, ylabel in (("left", "mpe", "Global MPE (mm)"),
+                            ("right", "mpjpe", "Root-relative MPJPE (mm)")):
+        band(axd[ax], *_mean_std(rows, "n_components", col))
+        axd[ax].set_ylabel(ylabel)
+        axd[ax].set_xlabel("# Components")
+    fig.savefig(os.path.join(dir_prefix, names[2]), bbox_inches="tight")
+    plt.close(fig)
+
+    fig = plt.figure(figsize=(16, 9), dpi=60)
+    axd = fig.subplot_mosaic([["left", "right"]])
+    for lasso, lbl in (("True", "L1-norm"), ("False", "L2-norm")):
+        sub = [r for r in rows if r["lasso"] == lasso]
+        if not sub:
+            continue
+        for ax, col in (("left", "mpe"), ("right", "mpjpe")):
+            band(axd[ax], *_mean_std(sub, "window", col), lbl)
+    axd["left"].set_ylabel("Global MPE (mm)")
+    axd["right"].set_ylabel("Root-relative MPJPE (mm)")
+    for ax in ("left", "right"):
+        axd[ax].set_xlabel("Window Size")
+        axd[ax].legend()
+    fig.savefig(os.path.join(dir_prefix, names[3]), bbox_inches="tight")
+    plt.close(fig)
+    return data

@@ -1,9 +1,10 @@
-"""The dataset CLI: its monocular, force-plate, AcinoSet and analysis paths.
+"""The dataset CLI: its monocular, force-plate, AcinoSet, analysis and
+study paths.
 
-Port of ``cheetah_pose_estimation_tpu/pipeline/run_dataset.py`` for
-``--materialize_synthetic``, ``--run_monocular --clean`` (serial or
-``--batched``), ``--run_kinetic [--clean]``, ``--run_acinoset [--clean]``
-and ``--run_analysis [--clean] [--batched]``::
+Port of ``cheetah_pose_estimation_tpu/pipeline/run_dataset.py``, every
+flag: ``--materialize_synthetic``, ``--run_monocular --clean`` (serial or
+``--batched``), ``--run_kinetic [--clean]``, ``--run_acinoset [--clean]``,
+``--run_analysis [--clean] [--batched]`` and the study flags below::
 
     python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
         --materialize_synthetic --root_dir R
@@ -38,8 +39,27 @@ that have them) and prints :func:`validate_dataset`; the fifth solves
 every camera of every test trial as the monocular one
 (:func:`run_monocular_all`), then writes the distance-vs-error table
 (:func:`distance_vs_error`) and the per-camera robustness of one trial
-(``results.example_robustness``). The study flags are not defined, and
-the post-process plots are not made.
+(``results.example_robustness``). The study flags run
+``pipeline/studies.py``: ``--run_grid_search``,
+``--run_data_driven_ablation_study`` and
+``--run_physics_based_ablation_study`` (batched with ``--batched``, else
+trial by trial) on the test trials of R, scored against the multi-view
+solutions that a ``--run_monocular`` run saved under O (the physics
+ablation starts from its data-driven solutions), and
+``--run_degradation_sweep [--sweep_physics]`` on procedural trials of its
+own::
+
+    CHEETAH_DATA_DRIVEN_DATASET=P \
+    python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
+        --run_grid_search --run_data_driven_ablation_study \
+        --run_physics_based_ablation_study [--batched] \
+        --root_dir R --out_dir_prefix O
+    CHEETAH_DATA_DRIVEN_DATASET=P \
+    python -m cheetah_pose_estimation_tpu_torch.pipeline.run_dataset \
+        --run_degradation_sweep [--sweep_physics] --out_dir_prefix O
+
+Plots (the results table's bars, the studies' figures) are written where
+matplotlib is installed; elsewhere a line names each PDF skipped.
 """
 from __future__ import annotations
 
@@ -762,8 +782,9 @@ def dataset_post_process(root_dir: str, dir_prefix: str,
     (against the multi-view solve) and solve time, rounded as the JAX
     package rounds them, written to ``dataset_results.csv``: one column per
     (trial, mode) under a two-row header, one row per metric, as pandas
-    writes ``concat({trial: DataFrame(modes)}, axis=1)``. Returns
-    {trial: {mode: {metric: value}}}."""
+    writes ``concat({trial: DataFrame(modes)}, axis=1)``, then
+    :func:`_post_process_plots`. Returns {trial: {mode: {metric:
+    value}}}."""
     results: Dict[str, Dict[str, Dict[str, float]]] = {}
     for idx, (cheetah, date, trial_name) in enumerate(test_set):
         data_path = os.path.join(date, cheetah, trial_name)
@@ -806,7 +827,45 @@ def dataset_post_process(root_dir: str, dir_prefix: str,
     for t, m in cols:
         print(f"{t:40s} {m:14s} " + "  ".join(
             f"{k}={results[t][m][k]}" for k in METRICS))
+    _post_process_plots(results, dir_prefix)
     return results
+
+
+def _post_process_plots(results: Dict[str, Dict[str, Dict[str, float]]],
+                        dir_prefix: str) -> None:
+    """``data_driven_mpjpe_result.pdf``: horizontal bars of each mode's
+    MPE and MPJPE averaged over the trials (a line names it where
+    matplotlib is not installed)."""
+    from .results import _pyplot
+
+    out = os.path.join(dir_prefix, "data_driven_mpjpe_result.pdf")
+    plt = _pyplot()
+    if plt is None:
+        print(f"matplotlib is not installed: skipped {out}")
+        return
+    modes = sorted({m for e in results.values() for m in e})
+    means = {k: [float(np.mean([e[m][k] for e in results.values()
+                                if m in e])) for m in modes]
+             for k in ("mpe", "mpjpe")}
+    y = np.arange(len(modes))
+    fig = plt.figure()
+    for j, k in enumerate(("mpe", "mpjpe")):
+        plt.barh(y + 0.25 * (j - 0.5), means[k], 0.25, label=k)
+    plt.yticks(y, modes)
+    plt.xlabel("Error (mm)")
+    plt.legend()
+    fig.savefig(out, bbox_inches="tight")
+    plt.close(fig)
+
+
+def _maybe_ablation_figure(dir_prefix: str) -> None:
+    """The combined ablation figure (``results.ablation_study``) once both
+    ablation CSVs exist in ``dir_prefix``."""
+    if all(os.path.exists(os.path.join(dir_prefix, f))
+           for f in ("data_driven_ablation_results.csv",
+                     "physics_based_ablation_results.csv")):
+        from . import results as results_mod
+        results_mod.ablation_study(dir_prefix)
 
 
 def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
@@ -820,8 +879,10 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
     (``validate``); with ``--run_analysis``, each mode's of the
     every-camera sweep (``analysis``, :func:`run_monocular_all`), the rows
     of :func:`distance_vs_error` (``dist_vs_error``) and the values of
-    ``results.example_robustness`` (``robustness``). It is also
-    returned."""
+    ``results.example_robustness`` (``robustness``); with a study flag,
+    per study its rows (or dict) and its wall seconds and launches per
+    shape (``studies``: ``grid``, ``model_selection``, ``dd_ablation``,
+    ``physics_ablation``, ``degradation``). It is also returned."""
     parser = argparse.ArgumentParser(
         description="cheetah reconstruction over a dataset of trials "
                     "(PyTorch port)")
@@ -831,6 +892,16 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
     parser.add_argument("--run_acinoset", action="store_true")
     parser.add_argument("--run_kinetic", action="store_true")
     parser.add_argument("--run_analysis", action="store_true")
+    parser.add_argument("--run_grid_search", action="store_true")
+    parser.add_argument("--run_degradation_sweep", action="store_true")
+    parser.add_argument("--sweep_physics", action="store_true",
+                        help="add a physics-based column to the degradation "
+                             "sweep (warm-started from each rate's "
+                             "data-driven solution)")
+    parser.add_argument("--run_data_driven_ablation_study",
+                        action="store_true")
+    parser.add_argument("--run_physics_based_ablation_study",
+                        action="store_true")
     parser.add_argument("--override_default_cam", action="store_true")
     parser.add_argument("--clean", action="store_true",
                         help="regenerate reconstructions before analysis")
@@ -916,6 +987,59 @@ def main(argv=None, report: Optional[dict] = None) -> Optional[dict]:
         if report is not None:
             report["dist_vs_error"] = rows
             report["robustness"] = rob
+    if not (args.run_grid_search or args.run_degradation_sweep
+            or args.run_data_driven_ablation_study
+            or args.run_physics_based_ablation_study):
+        return report
+    from . import results as results_mod
+    from . import studies
+    studies_rep = {} if report is None else report.setdefault("studies", {})
+    dev = resolve_device(args.device)
+    kw = dict(device=dev)
+
+    def study(name, fn):
+        """Run ``fn()``; its result, wall and launches into the report."""
+        out, tr = _timed(dev, lambda tr: fn())
+        studies_rep[name] = dict(tr, result=out)
+
+    if args.run_grid_search:
+        if args.batched:
+            study("grid", lambda: studies.run_grid_search_batched(
+                args.root_dir, args.out_dir_prefix, test_set,
+                cam_overrides=cam_overrides, **kw))
+        else:
+            study("grid", lambda: studies.run_grid_search(
+                args.root_dir, args.out_dir_prefix, test_set, **kw))
+        study("model_selection", lambda: studies.model_selection_analysis(
+            out_dir=args.out_dir_prefix, **kw))
+        results_mod.data_driven_analysis(args.out_dir_prefix)
+    if args.run_degradation_sweep:
+        study("degradation", lambda: studies.run_degradation_sweep(
+            out_dir=args.out_dir_prefix, include_physics=args.sweep_physics,
+            **kw))
+    if args.run_data_driven_ablation_study:
+        if args.batched:
+            study("dd_ablation", lambda:
+                  studies.run_data_driven_ablation_batched(
+                      args.root_dir, args.out_dir_prefix, test_set,
+                      cam_overrides, **kw))
+        else:
+            study("dd_ablation", lambda:
+                  studies.run_data_driven_ablation_study(
+                      args.root_dir, args.out_dir_prefix, test_set, **kw))
+        _maybe_ablation_figure(args.out_dir_prefix)
+    if args.run_physics_based_ablation_study:
+        if args.batched:
+            study("physics_ablation", lambda:
+                  studies.run_physics_ablation_batched(
+                      args.root_dir, args.out_dir_prefix, test_set,
+                      cam_overrides, **kw))
+        else:
+            study("physics_ablation", lambda:
+                  studies.run_physics_based_ablation_study(
+                      args.root_dir, args.out_dir_prefix, test_set,
+                      cam_overrides, **kw))
+        _maybe_ablation_figure(args.out_dir_prefix)
     return report
 
 

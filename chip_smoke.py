@@ -25,8 +25,10 @@ Phases (any failure exits nonzero):
    CLI launches: the batched path's 6x64, 4x64, 18x64, 12x64, 42x64, 28x64
    and the serial path's 3xN, 1xN, 7xN for its two trials' N = 40, 42,
    the force-plate pipeline's 1x50, the AcinoSet flag's 3xN, 1xN, 7xN for
-   its other two trials' N = 44, 46, and the analysis flag's 36x64, 24x64, 108x64, 72x64, 252x64 and
-   168x64 (the last two in two waves of CTAs: more systems than SMs).
+   its other two trials' N = 44, 46, the analysis flag's 36x64, 24x64,
+   108x64, 72x64, 252x64 and 168x64 (the last two in two waves of CTAs:
+   more systems than SMs), and the studies' 48x48, 6x48, 2x48 and the
+   full-depth grid's 144x64 (two waves) and 96x64.
 4. main    — stage 1 of the bench: 10 procedural monocular problems padded
    to 64 frames, ``make_kinematic_multistart`` once (warm-up, with the
    kernel's launch count) and 1 timed repeat; one more run with the probe
@@ -68,8 +70,9 @@ Phases (any failure exits nonzero):
    (``tests/data/jax_dd_inputs.npz``) against the JAX float64 stage-2 run
    from the same inputs (``tests/data/jax_stage2_f32.json``, ``f64``): the
    same pruned stance matrices, mean MPJPE within 2 %, mean CoM-velocity
-   within 5 %, the same ``ok``; the JAX float32 run beside it. Profile: one
-   more physics run under torch.profiler.
+   within 5 %, the same ``ok``; the JAX float32 run beside it. Profile: a
+   20-step window of the LM solve from the warm start under
+   torch.profiler, against an unprofiled run of the window.
 9. cli     — the dataset CLI (``pipeline/run_dataset.main``) on the
    synthetic test set: write the procedural pose tables and render the
    10-trial tree (6 fisheye cameras, correlated DLC failures), its digest
@@ -118,7 +121,7 @@ Phases (any failure exits nonzero):
    path's), and one trial's 1-lane ground-truth solve and 3-lane default
    multistart under torch.profiler (the card's idle share).
 11. kinetic — the force-plate pipeline (``run_dataset.main --run_kinetic
-   --clean``) on the first two trials of the synthetic kinetic test set
+   --clean``) on the first trial of the synthetic kinetic test set
    (50 frames, 4 pinhole cameras at 200 fps), its tree's digest held
    against the JAX
    trees' (``tests/data/jax_kinetic_f32.json``): per stage (kinematic,
@@ -140,18 +143,19 @@ Phases (any failure exits nonzero):
    GRF re-estimation) under torch.profiler (device events per LM step, the
    card's idle share).
 12. acinoset — the AcinoSet flag (``run_dataset.main --run_acinoset
-   --clean``) on the first four trials of the synthetic test set, the two
-   flicks with their pairwise pseudo-measurements (W = 3), its tree's and
+   --clean``) on trials 0 and 2 of the first four of the synthetic test
+   set (jules flick2 with its pairwise pseudo-measurements, W = 3, and
+   phantom run; the four rendered, the other two removed), its tree's and
    PPM pickles' digests held against the JAX trees'
    (``tests/data/jax_acinoset_f64.json``): per trial and mode (ground
    truth, default, data-driven) s, LM steps, launches per shape, W, MPJPE
    and MPE against the synthetic truth, the saved objective;
    ``validate_dataset``'s dict. Agreement with the JAX float64 run on the
    same input: the ground-truth mode's mean MPJPE against the truth within
-   2 % either way, over all four trials and over the two flicks, nothing
-   set aside; W = 3 on the flicks and 1 on the runs on both sides;
-   ``validate_dataset`` equal; every JAX artifact present with its keys
-   and shapes. The monocular modes are printed beside JAX float64 and
+   2 % either way, over both trials and over the flick, nothing set
+   aside; W = 3 on the flick and 1 on the run on both sides;
+   ``validate_dataset`` equal to JAX's on those trials; every JAX artifact
+   of those trials present with its keys and shapes. The monocular modes are printed beside JAX float64 and
    float32.
 13. analysis — the analysis flag (``run_dataset.main --run_analysis
    --clean --batched``) on phase 9's tree: the multi-view ground truth of
@@ -167,6 +171,27 @@ Phases (any failure exits nonzero):
    against the multi-view solve and its depth, across and rest parts,
    beside JAX float64's on the two trials it swept; a window of 10 LM
    steps of that line-scan under torch.profiler.
+14. studies — the study flags on phase 9's tree and output directory
+   (``run_dataset.main --run_grid_search --run_data_driven_ablation_study
+   --run_physics_based_ablation_study --batched --trials 2``: the
+   24-configuration grid over two trials as one 48-lane batch, the model
+   selection at its defaults, both ablations, the figures), then the
+   degradation sweep with its physics column (rates 0 and 8, 4 bench
+   trials); per study the wall, LM steps and launches per shape, each
+   CSV's rows, the plots written or skipped. Checks: every CSV and
+   ``grid_search.pickle`` with the JAX package's columns or keys and row
+   counts, every value finite, ``n``
+   = 2 in every study row; the AR statistics within 1e-6 of JAX's with
+   equal non-zero counts; each component count's GMM, fitted again from
+   the JAX package's k-means++ draw, within 0.5 nats per sample of JAX's
+   likelihoods (the studies' own fits, from the port's draw, printed
+   beside); the kernel against its plain version on the grid's first
+   finite 48-lane systems (rel error <= 7e-4); the sweep's mean MPJPE per rate and column within
+   2 % of JAX float64's, a rate where JAX float32 misses its own float64
+   by more than that printed, not gated (``sweep_gate``), against
+   ``tests/data/jax_studies_f64.json``. The studies' monocular rows are
+   printed beside the JAX float64 and float32 runs' on the same trials
+   where that file recorded them.
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -177,6 +202,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -213,6 +239,13 @@ ACINOSET_SHAPES = tuple((b, 40 + 2 * i) for i in range(SERIAL_TRIALS, 4)
                         for b in (3, 1, 7))
 ANALYSIS_SHAPES = ((36, 64), (24, 64), (108, 64), (72, 64), (252, 64),
                    (168, 64))
+# the studies (phase 14, two jules trials of 40 and 42 frames padded to
+# 48): the grid's 24 configurations x 2 trials as one batch, the
+# bootstrap's heading probe (3 x 2) and its 2-lane solves (the ablations'
+# too); the degradation sweep's 4 bench trials at 64 frames (their probe
+# and solves are CLI_SHAPES' 12x64 and 4x64); and the grid at the CLI's
+# full depth (10 trials: jules 6 and phantom 4, 24 configurations each)
+STUDY_SHAPES = ((48, 48), (6, 48), (2, 48), (144, 64), (96, 64))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -444,7 +477,8 @@ def phase_kernel(dev, results):
 
 def kernel_cli_shapes(dev):
     """The kernel at the dataset CLI's shapes (``CLI_SHAPES``,
-    ``SERIAL_SHAPES``, ``KINETIC_SHAPES``) on random SPD systems: its
+    ``SERIAL_SHAPES``, ``KINETIC_SHAPES``, ``ACINOSET_SHAPES``,
+    ``ANALYSIS_SHAPES``, ``STUDY_SHAPES``) on random SPD systems: its
     error against the plain
     version in float64 (<= 7e-4), its time (CUDA events, 20 launches after
     3 warm-ups) beside the plain float32 version's, the one-call library
@@ -456,7 +490,8 @@ def kernel_cli_shapes(dev):
                          ("serial CLI", SERIAL_SHAPES),
                          ("kinetic CLI", KINETIC_SHAPES),
                          ("acinoset CLI", ACINOSET_SHAPES),
-                         ("analysis CLI", ANALYSIS_SHAPES)):
+                         ("analysis CLI", ANALYSIS_SHAPES),
+                         ("studies", STUDY_SHAPES)):
         for B, N in shapes:
             d32, l32, r32 = cuda_banded.random_systems(B, N, B * 1000 + N,
                                                        dev)
@@ -878,9 +913,9 @@ def physics_kernel_check(dev, fte, kbat, qw):
 
 def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
     """Stage 2: host prep, the kernel on the physics systems, the main path
-    from phase 7's output, agreement with the JAX runs from JAX's inputs, one
-    profiled run. Returns the kernel's launches per shape of the counted
-    run."""
+    from phase 7's output, agreement with the JAX runs from JAX's inputs, a
+    ``PROFILE_STEPS``-step window of the LM solve under torch.profiler.
+    Returns the kernel's launches per shape of the counted run."""
     from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
     from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
     from cheetah_pose_estimation_tpu_torch.pipeline import contacts
@@ -1010,8 +1045,27 @@ def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
         raise AssertionError(f"physics stage disagrees with JAX's float64 "
                              f"run: {a}, port ok {ok_a}")
 
-    prof = profiled(lambda: run(q_dd, gmm_prior), float(np.mean(times)))
-    log(f"# physics profile: {prof}")
+    # a window of the LM solve under torch.profiler, from the warm start
+    # with its curvature blocks, against an unprofiled run of the window
+    # (the whole stage under the profiler took ~120 s of the smoke's time)
+    blocks = fte.eom_curvature_blocks(qw, kbat)
+    window = fte.make_solver(stages=((3.0, PROFILE_STEPS),))
+    run_w = lambda: window(qw, kbat, eom_blocks=blocks)
+    run_w()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_w()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cuda_banded.reset_launches()
+    prof = profiled(run_w, wall)
+    prof["lm_steps"] = cuda_banded.launches
+    prof["device_events_per_step"] = prof["device_kernel_launches"] / \
+        prof["lm_steps"]
+    prof["device_idle_share"] = 1.0 - prof["device_busy_share"]
+    prof["ms_per_step"] = wall / prof["lm_steps"] * 1e3
+    log(f"# physics profile: {PROFILE_STEPS}-step window of the LM solve "
+        f"(unprofiled {wall:.3f} s) {prof}")
     out["profile"] = prof
     return by_shape, worst_rel, worst_abs
 
@@ -1371,7 +1425,8 @@ def phase_cli(dev, results, ref):
     6-camera and polish systems, hold the results against the JAX float32
     CLI run ``ref`` (``tests/data/jax_cli_f32.json``), and profile the
     6-camera solves. Returns (launches per shape of the CLI run, worst rel
-    err, worst abs err, (the tree's root, the training table))."""
+    err, worst abs err, (the tree's root, the training table, the output
+    directory))."""
     import tempfile
 
     from cheetah_pose_estimation_tpu_torch.data import io as dio
@@ -1539,7 +1594,7 @@ def phase_cli(dev, results, ref):
         f"s, {gt['lm_steps']} LM steps) {prof}")
     out["profile_ground_truth"] = prof
     results["cli"] = out
-    return by_shape, worst_rel, worst_abs, (root, dset)
+    return by_shape, worst_rel, worst_abs, (root, dset, odir)
 
 
 # -- phase 10: the dataset CLI's serial per-trial path ------------------------
@@ -1740,17 +1795,17 @@ def phase_serial(dev, results, ref, root, dset):
 
 # -- phase 11: the force-plate pipeline --------------------------------------
 
-# phase 11 runs the first two force-plate trials (of 5): 92 % of its wall
-# is the two 180-step kinetic solves of each trial, and the smoke's limit
-# leaves room for two next to phases 12 and 13
-KINETIC_TRIALS = 2
+# phase 11 runs the first force-plate trial (of 5): 92 % of its wall is
+# the two 180-step kinetic solves of each trial, and the smoke's limit
+# leaves room for one next to phases 12-14
+KINETIC_TRIALS = 1
 KINETIC_STAGE_DIRS = (("kinematic", "fte_kinematic"),
                       ("kinetic", "fte_kinetic"), ("grf", "fte_grf"))
 TOL_STATIC_GRF = 1e-3    # body weights, frame by frame, same trajectory
 # JAX's own sanity bars on one force-plate trial's MPE against the truth
 # (tests/test_kinetic_dataset.py), printed beside the port's
 JAX_MPE_BARS = {"kinematic": 20.0, "kinetic": 40.0}
-PROFILE_STEPS = 20       # the profiled window of a 1-lane kinetic solve
+PROFILE_STEPS = 20       # the profiled window of a kinetic LM solve (phases 8, 11)
 
 
 # How a force-plate run is scored, the same for both packages:
@@ -2218,6 +2273,9 @@ def phase_agree(ctx, rows_kernel, results):
 # -- phases 12 and 13: the AcinoSet and analysis flags ----------------------
 
 ACINOSET_TRIALS = 4       # jules flick2, flick1 (with PPMs), phantom run, run1_2
+# of those, the trials phase 12 solves (one flick with PPMs, one run): the
+# smoke's limit leaves room for two next to phase 14
+ACINOSET_RUN = (0, 2)
 ACINOSET_MODES = ("ground-truth", "default", "data-driven")
 TOL_ANALYSIS = 0.01       # distance and view angle against JAX's, relative
 LINESCAN_PROFILE_STEPS = 10   # the profiled window of the widest line-scan
@@ -2355,9 +2413,10 @@ def log_sweep_errors(errors, jax_errors):
 
 
 def phase_acinoset(dev, results, ref, dset):
-    """``run_dataset.main --run_acinoset --clean`` on the first
-    ``ACINOSET_TRIALS`` trials of the synthetic test set (the flicks with
-    their PPMs, ``render_acinoset_tree``), the tree's digest held against
+    """``run_dataset.main --run_acinoset --clean`` on trials
+    ``ACINOSET_RUN`` of the first ``ACINOSET_TRIALS`` of the synthetic test
+    set (the flicks with their PPMs, ``render_acinoset_tree``; the tree's
+    other trials removed after the digest), the tree's digest held against
     the JAX package's own rendering and the reference run's input
     (``tests/data/jax_acinoset_f64.json``). Each trial alone at its own
     length through the ground-truth, default and data-driven modes (the
@@ -2385,6 +2444,10 @@ def phase_acinoset(dev, results, ref, dset):
     if paths != ref["trials"]:
         raise AssertionError(f"rendered {paths}, the reference has "
                              f"{ref['trials']}")
+    for i, p in enumerate(paths):
+        if i not in ACINOSET_RUN:
+            shutil.rmtree(os.path.join(root, p))
+    paths = [paths[i] for i in ACINOSET_RUN]
     tree_ok = True
     for p in paths:
         xy, lik, _ = dio.load_dlc_points(os.path.join(root, p, "dlc"))
@@ -2495,13 +2558,16 @@ def phase_acinoset(dev, results, ref, dset):
                 + f" jax_f32 {j32:.3f}")
             if gated and not ok:
                 bad.append((m, label, rel))
-    valid_ok = report["validate"] == ref["f64"]["validate"]
+    jvalid = {k: v for k, v in ref["f64"]["validate"].items()
+              if any(k.startswith(p + "/") for p in paths)}
+    valid_ok = report["validate"] == jvalid
     log(f"# acinoset agree: validate_dataset {report['validate']} "
         f"({'same' if valid_ok else 'DIFFERENT'} as JAX f64's)")
     if not valid_ok:
         bad.append(("validate", report["validate"]))
     mine = artifacts(odir)
-    theirs = {k: v for k, v in ref["f64"]["artifacts"].items()
+    theirs = {k: v for k, v in trial_artifacts(ref["f64"]["artifacts"],
+                                               paths).items()
               if not k.endswith(".h5")}
     missing = [p for p in theirs if p not in mine]
     differ = [p for p, v in theirs.items() if p in mine and mine[p] != v]
@@ -2744,6 +2810,342 @@ def phase_analysis(dev, results, ref, root):
     return by_shape, kern["rel_err"], kern["max_abs_err"]
 
 
+# -- phase 14: the studies ---------------------------------------------------
+
+STUDY_TRIALS = 2          # jules flick2 and flick1: one subject group
+SWEEP_RATES = (0.0, 8.0)
+SWEEP_TRIALS = 4
+# each study CSV: its name, the JAX package's columns (the rows it builds:
+# pipeline/studies.py:236-241 with the model statistics of :184-189,
+# :626-633, :527-554) and row count
+ABLATION_COLUMNS = ["config", "mpe", "mpjpe", "cvr", "n"]
+STUDY_CSVS = {
+    "grid": ("grid_search_results.csv", [
+        "n_components", "window", "lasso", "mpe", "mpjpe", "n",
+        "lr_non_zeros", "lr_train_rmse", "lr_validation_rmse",
+        "gmm_train_likelihood", "gmm_validation_likelihood"], 24),
+    "dd_ablation": ("data_driven_ablation_results.csv", ABLATION_COLUMNS, 4),
+    "physics_ablation": ("physics_based_ablation_results.csv",
+                         ABLATION_COLUMNS, 4),
+    "degradation": ("degradation_sweep.csv", [
+        "rate", "default_mpjpe", "dd_mpjpe", "improvement_pct",
+        "physics_mpjpe", "physics_vs_dd_pct"], len(SWEEP_RATES))}
+STUDY_PDFS = ("gmm_model_selection.pdf", "ar_model_selection.pdf",
+              "gmm_components_vs_error.pdf", "ar_window_vs_error.pdf",
+              "ablation-study.pdf")
+SWEEP_COLUMNS = ("default_mpjpe", "dd_mpjpe", "physics_mpjpe")
+
+
+def sweep_gate(port, jax_f64, jax_f32, tol=TOL_MPJPE):
+    """Agreement of one degradation-sweep mean (one column at one rate) of
+    the port's float32 run with the JAX float64 run on the same problems:
+    within ``tol`` of it, either way. Where the JAX float32 run itself
+    misses the float64 one by more than ``tol`` (the reference does not
+    reproduce itself in float32 there), the value is printed and not
+    gated."""
+    rel = (port - jax_f64) / jax_f64
+    f32 = (jax_f32 - jax_f64) / jax_f64
+    aside = abs(f32) > tol
+    return {"port": port, "jax_f64": jax_f64, "jax_f32": jax_f32,
+            "rel_f64": rel, "jax_f32_vs_f64": f32, "set_aside": aside,
+            "ok": aside or abs(rel) <= tol, "tol": tol}
+
+
+def sweep_agree(rep, ref):
+    """The degradation sweep's ``sweep_gate`` per rate and column: the
+    port's unrounded means (``rep``: ``run_degradation_sweep``'s report)
+    against the JAX float64 and float32 runs' (``ref``: per dtype its
+    ``rows``), printed with the prior gate and the per-trial values. A rate
+    that either JAX run did not record (its CPU runs take hours a rate)
+    is printed, not gated. Returns the gates."""
+    jax_rows = {d: {r["rate"]: r for r in ref[d]["rows"]}
+                for d in ("f64", "f32")}
+    gates = []
+    for i, (raw, ok) in enumerate(zip(rep["rows"], rep["prior_ok"])):
+        rate = raw["rate"]
+        log(f"# studies: sweep rate {rate} prior gate {ok}, per-trial "
+            f"MPJPE {rep['per_trial'][i]}")
+        j64, j32 = (jax_rows[d].get(rate) for d in ("f64", "f32"))
+        for c in SWEEP_COLUMNS:
+            if j64 is None or j32 is None:
+                log(f"# studies agree: sweep rate {rate} {c}: port "
+                    f"{raw[c]:.3f}, jax_f64 "
+                    + (f"{j64[c]:.3f}" if j64 else "not recorded")
+                    + ", jax_f32 "
+                    + (f"{j32[c]:.3f}" if j32 else "not recorded")
+                    + " (printed, not gated)")
+                continue
+            g = dict(sweep_gate(raw[c], j64[c], j32[c]), rate=rate,
+                     column=c)
+            gates.append(g)
+            log(f"# studies agree: sweep rate {rate} {c}: port "
+                f"{g['port']:.3f} jax_f64 {g['jax_f64']:.3f} jax_f32 "
+                f"{g['jax_f32']:.3f} (rel {g['rel_f64']:+.4f}, jax f32 vs "
+                f"f64 {g['jax_f32_vs_f64']:+.4f}, bar ±{g['tol']}"
+                + (", set aside: JAX f32 misses its f64)" if g["set_aside"]
+                   else ")") + ("" if g["ok"] else " FAILS"))
+    return gates
+
+
+@contextlib.contextmanager
+def first_systems(B):
+    """Record the first finite damped, scaled normal systems the kernel is
+    given at B lanes inside the block (copies), into the yielded dict;
+    every solve runs as it would. (A float32 solve's first stage, at the
+    redescending loss's scale 10, hands the kernel NaN systems: ROADMAP
+    Queue 3 #1.)"""
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+
+    rec = {}
+    orig = cuda_banded.solve
+
+    def solve(diag, lower, rhs, *a, **k):
+        if diag.shape[0] == B and "diag" not in rec and all(
+                bool(torch.isfinite(t).all()) for t in (diag, lower, rhs)):
+            rec.update(diag=diag.clone(), lower=lower.clone(),
+                       rhs=rhs.clone())
+        return orig(diag, lower, rhs, *a, **k)
+
+    cuda_banded.solve = solve
+    try:
+        yield rec
+    finally:
+        cuda_banded.solve = orig
+
+
+def gmm_same_draw(dev, dset, jm, sel, grid_rows):
+    """The GMM likelihoods of the studies against JAX's (``jm``:
+    ``ref["models"]``). Each component count's EM is run again on the card
+    from the JAX package's k-means++ draw (``jm["kmeanspp"]``: a torch
+    generator cannot draw as ``jax.random`` does) and scored on the
+    training and validation tables: the gated difference. The studies' own
+    fits (the port's draw, which may end in another local optimum of EM)
+    are printed beside JAX's. Returns the largest gated difference and the
+    per-count values."""
+    from cheetah_pose_estimation_tpu_torch.priors import dataset as prior_ds
+    from cheetah_pose_estimation_tpu_torch.priors import gmm as gmm_mod
+
+    X = prior_ds.load_pose_dataset(dset).data[:, 6:28]
+    Xv = prior_ds.load_pose_dataset(os.path.join(
+        os.path.dirname(dset), "validation_dataset.csv")).data[:, 6:28]
+    own = {k + 1: (sel["gmm_train_likelihood"][k],
+                   sel["gmm_validation_likelihood"][k])
+           for k in range(len(sel["gmm_train_likelihood"]))}
+    own.update({r["n_components"]: (r["gmm_train_likelihood"],
+                                    r["gmm_validation_likelihood"])
+                for r in grid_rows})
+    per, worst = {}, 0.0
+    for k, means0 in sorted(jm["kmeanspp"].items(), key=lambda x: int(x[0])):
+        k = int(k)
+        jg = jm["grid"].get(f"gmm_{k}")
+        jax_tv = ((jg["gmm_train_likelihood"], jg["gmm_validation_likelihood"])
+                  if jg else (jm["selection"]["gmm_train_likelihood"][k - 1],
+                              jm["selection"]["gmm_validation_likelihood"][
+                                  k - 1]))
+        p = gmm_mod._fit(X, k, 42, 200, 1e-6, means0=np.asarray(means0),
+                         device=dev)
+        same = (gmm_mod.score(p, X), gmm_mod.score(p, Xv))
+        worst = max([worst] + [abs(a - b) for a, b in zip(same, jax_tv)])
+        per[k] = {"jax": jax_tv, "same_draw": same, "own_draw": own.get(k)}
+        log(f"# studies: GMM K={k} train/validation likelihood jax "
+            f"{jax_tv[0]:.4f}/{jax_tv[1]:.4f}, port from JAX's draw "
+            f"{same[0]:.4f}/{same[1]:.4f}, port's own draw (the studies') "
+            + ("{:.4f}/{:.4f}".format(*own[k]) if k in own else "-"))
+    return {"same_draw_max_nats": worst, "per_k": per}
+
+
+def study_rows_vs_jax(name, rows, ref, key):
+    """Print a study's rows beside those of the JAX float64 and float32
+    runs on the same trials (``ref["studies"]``; a run the reference did
+    not record is left out). Not gated: float32 monocular results move
+    10-80 % under round-off."""
+    runs = {r: ref["studies"].get(r, {}).get(name) for r in ("f64", "f32")}
+    for i, r in enumerate(rows):
+        label = {k: r[k] for k in key}
+        log(f"# studies vs jax ({name}): {label} " + ", ".join(
+            f"{c} port {r[c]:.3f}" + "".join(
+                f" jax_{d} {v[i][c]:.3f}" for d, v in runs.items() if v)
+            for c in ("mpe", "mpjpe", "cvr") if c in r)
+            + ("" if any(runs.values()) else " (no JAX run recorded)"))
+
+
+def phase_studies(dev, results, ref, root, dset, odir):
+    """The study flags on phase 9's tree and output directory:
+    ``run_dataset.main(["--run_grid_search",
+    "--run_data_driven_ablation_study", "--run_physics_based_ablation_study",
+    "--batched", "--trials", "2", ...])`` (the 24-configuration grid over the
+    first two trials as one 48-lane batch, ``model_selection_analysis`` at
+    its defaults, both ablations, the figures), then
+    ``studies.run_degradation_sweep(rates=SWEEP_RATES,
+    max_trials=SWEEP_TRIALS, include_physics=True)``; per study the wall,
+    LM steps and launches per shape. Gate: every CSV and
+    ``grid_search.pickle`` present with the JAX package's columns or keys
+    and row counts (``STUDY_CSVS``; the pickle's keys and lengths from
+    ``tests/data/jax_studies_f64.json``); every value
+    finite and every study row's ``n`` = 2; the AR statistics within 1e-6
+    relative of JAX's with equal non-zero counts, the GMM likelihoods
+    of the EM run from JAX's k-means++ draw within 0.5 nats per sample
+    (``gmm_same_draw``; the studies' own draw printed beside); the kernel
+    against its plain version in float64 on the grid's first finite
+    48-lane normal systems (rel error <= 7e-4);
+    each sweep column's mean MPJPE per rate within 2 % of the JAX float64
+    run's (``sweep_gate``). Printed only: the studies' monocular rows
+    beside the JAX float64 and float32 runs' on the same trials, where the
+    reference recorded them. Returns (launches
+    per shape, the kernel's rel err, abs err)."""
+    import csv
+    import tempfile
+
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+    from cheetah_pose_estimation_tpu_torch.pipeline import studies
+    from cheetah_pose_estimation_tpu_torch.utils import data_ops
+
+    out, bad = {}, []
+    os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
+    B_grid = 24 * STUDY_TRIALS
+    before = set(os.listdir(odir))
+
+    # 1. the main path: the three study flags, then the sweep
+    cuda_banded.reset_launches()
+    report = {}
+    t0 = time.perf_counter()
+    with plain_solves_counted() as plain, first_systems(B_grid) as grid_in:
+        run_dataset.main(["--run_grid_search",
+                          "--run_data_driven_ablation_study",
+                          "--run_physics_based_ablation_study", "--batched",
+                          "--trials", str(STUDY_TRIALS), "--root_dir", root,
+                          "--out_dir_prefix", odir], report=report)
+        sweep_dir = tempfile.mkdtemp(prefix="sweep_")
+        sweep_rep = {}
+        rows_sweep, tr = run_dataset._timed(
+            dev, lambda tr: studies.run_degradation_sweep(
+                rates=SWEEP_RATES, max_trials=SWEEP_TRIALS,
+                include_physics=True, data_driven_dataset=dset,
+                out_dir=sweep_dir, report=sweep_rep))
+        report["studies"]["degradation"] = dict(tr, result=rows_sweep)
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    log(f"# studies: phase main path {out['wall_s']:.2f} s, kernel launches "
+        f"{shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        raise AssertionError(f"the studies ran plain banded solves on the "
+                             f"card: {plain}")
+    untimed = sorted(set(by_shape) - set(CLI_SHAPES + STUDY_SHAPES))
+    if untimed:
+        raise AssertionError(f"shapes not timed in phase 3: {untimed}")
+    per = {}
+    for name, rep in report["studies"].items():
+        per[name] = {"wall_s": rep["wall_s"],
+                     "lm_steps": int(sum(rep["launches"].values())),
+                     "launches_by_shape": shape_keys(rep["launches"])}
+        log(f"# studies: {name}: wall {rep['wall_s']:.2f} s, LM steps "
+            f"{per[name]['lm_steps']}, launches "
+            f"{per[name]['launches_by_shape']}")
+        if name != "model_selection" and not rep["launches"]:
+            bad.append(("no kernel launch", name))
+    out["studies"] = per
+
+    # 2. the artifacts: columns, row counts, finite values, n
+    if ref["sweep"]["f64"]["columns"] != STUDY_CSVS["degradation"][1]:
+        bad.append(("JAX sweep columns", ref["sweep"]["f64"]["columns"]))
+    for name, (fname, cols, n_rows) in STUDY_CSVS.items():
+        path = os.path.join(sweep_dir if name == "degradation" else odir,
+                            fname)
+        if not os.path.exists(path):
+            bad.append(("missing", fname))
+            continue
+        with open(path, encoding="utf-8", newline="") as f:
+            table = list(csv.reader(f))
+        log(f"# studies: {fname}: {table[0]}")
+        for r in table[1:]:
+            log(f"# studies: {fname}: {r}")
+        if table[0] != cols or len(table) - 1 != n_rows:
+            bad.append((fname, table[0], len(table) - 1, cols, n_rows))
+        vals = [float(v) if v else np.nan for r in table[1:]
+                for c, v in zip(table[0], r) if c not in ("config", "lasso")]
+        if not all(np.isfinite(vals)):
+            bad.append(("non-finite values", fname))
+        if "n" in table[0] and any(int(r[table[0].index("n")])
+                                   != STUDY_TRIALS for r in table[1:]):
+            bad.append(("n", fname))
+    sel = data_ops.load_pickle(os.path.join(odir, "grid_search.pickle"))
+    jsel = ref["models"]["selection"]
+    if sorted(sel) != sorted(jsel) or any(len(sel[k]) != len(jsel[k])
+                                          for k in jsel):
+        bad.append(("grid_search.pickle", {k: len(v) for k, v in
+                                           sel.items()}))
+    written = [n for n in sorted(set(os.listdir(odir)) - before)
+               if n.endswith(".pdf")]
+    skipped = [n for n in STUDY_PDFS if n not in written]
+    log(f"# studies: plots written {written}, skipped (no matplotlib) "
+        f"{skipped}")
+    out["plots"] = {"written": written, "skipped": skipped}
+
+    # 3. the model statistics against JAX's
+    grid_rows = report["studies"]["grid"]["result"]
+    ar_err, nz_same = 0.0, True
+    for k in ("lr_train_rmse", "lr_validation_rmse"):
+        for a, b in zip(sel[k], jsel[k]):
+            ar_err = max(ar_err, abs(a - b) / abs(b))
+    nz_same &= [int(x) for x in sel["lr_non_zeros"]] == [
+        int(x) for x in jsel["lr_non_zeros"]]
+    for r in grid_rows:
+        ja = ref["models"]["grid"][f"ar_{r['window']}_{r['lasso']}"]
+        for k in ("lr_train_rmse", "lr_validation_rmse"):
+            ar_err = max(ar_err, abs(r[k] - ja[k]) / abs(ja[k]))
+        nz_same &= int(r["lr_non_zeros"]) == int(ja["lr_non_zeros"])
+    gmm = gmm_same_draw(dev, dset, ref["models"], sel, grid_rows)
+    log(f"# studies: model statistics vs JAX: AR RMSE largest rel err "
+        f"{ar_err:.2e} (bar {TOL_AR}), non-zero counts equal {nz_same}; "
+        f"GMM likelihoods from JAX's k-means++ draw, largest |diff| "
+        f"{gmm['same_draw_max_nats']:.2e} nats per sample (bar "
+        f"{TOL_GMM_NATS})")
+    if ar_err > TOL_AR or not nz_same or \
+            gmm["same_draw_max_nats"] > TOL_GMM_NATS:
+        bad.append(("model statistics", ar_err, nz_same, gmm))
+    out["model_stats"] = {"ar_max_rel_err": ar_err, "non_zeros_equal":
+                          nz_same, "gmm": gmm}
+
+    # 4. the kernel on the grid's first 48-lane normal systems
+    if "diag" not in grid_in:
+        raise AssertionError(f"the grid solved no {B_grid}-lane system")
+    d32, l32, r32 = grid_in["diag"], grid_in["lower"], grid_in["rhs"]
+    x = cuda_banded.solve(d32, l32, r32)
+    torch.cuda.synchronize()
+    ref64 = cuda_banded.solve_reference(d32.double(), l32.double(),
+                                        r32.double())
+    abs_err = float((x.double() - ref64).abs().max())
+    kern = {"systems": "grid search", "B": d32.shape[0], "N": d32.shape[1],
+            "rel_err": abs_err / float(ref64.abs().max()),
+            "max_abs_err": abs_err}
+    log(f"# studies: kernel {kern}")
+    if not (torch.isfinite(x).all() and kern["rel_err"] <= TOL_REL):
+        raise AssertionError(f"kernel on the grid's systems: {kern}")
+    out["kernel"] = kern
+
+    # 5. the degradation sweep against JAX float64 and float32
+    gates = sweep_agree(sweep_rep, ref["sweep"])
+    if not gates:
+        bad.append(("sweep", "no rate the JAX reference recorded"))
+    elif any(not g["ok"] for g in gates):
+        bad.append(("sweep", [g for g in gates if not g["ok"]]))
+    out["sweep"] = {"rows": sweep_rep["rows"], "gates": gates,
+                    "per_trial": sweep_rep["per_trial"]}
+
+    # printed only: the studies' monocular rows beside JAX's
+    study_rows_vs_jax("grid", grid_rows, ref,
+                      ("n_components", "window", "lasso"))
+    for name in ("dd_ablation", "physics_ablation"):
+        study_rows_vs_jax(name, report["studies"][name]["result"], ref,
+                          ("config",))
+    results["studies"] = out
+    if bad:
+        raise AssertionError(f"the studies failed their checks: {bad[:6]}")
+    return by_shape, kern["rel_err"], kern["max_abs_err"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -2788,8 +3190,8 @@ def main():
     with open(os.path.join(HERE, "tests", "data", "jax_cli_f32.json"),
               encoding="utf-8") as f:
         cli_ref = json.load(f)
-    cli_shapes, cli_rel, cli_abs, (root, dset) = phase_cli(dev, results,
-                                                          cli_ref)
+    cli_shapes, cli_rel, cli_abs, (root, dset, cli_out) = phase_cli(
+        dev, results, cli_ref)
     with open(os.path.join(HERE, "tests", "data", "jax_serial_f32.json"),
               encoding="utf-8") as f:
         serial_ref = json.load(f)
@@ -2805,8 +3207,13 @@ def main():
     acinoset_shapes = phase_acinoset(dev, results, acinoset_ref, dset)
     analysis_shapes, an_rel, an_abs = phase_analysis(dev, results,
                                                      acinoset_ref, root)
-    worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel, an_rel)
-    worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs, an_abs)
+    with open(os.path.join(HERE, "tests", "data", "jax_studies_f64.json"),
+              encoding="utf-8") as f:
+        studies_ref = json.load(f)
+    studies_shapes, st_rel, st_abs = phase_studies(
+        dev, results, studies_ref, root, dset, cli_out)
+    worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel, an_rel, st_rel)
+    worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs, an_abs, st_abs)
 
     main_shape = timed[0]                     # (10, 64): the finish's shape
     keys = ("kernel_ms", "plain_ms", "cr_ms", "library_ms", "bound_ms",
@@ -2819,7 +3226,8 @@ def main():
         "launches": sum(stage1_shapes.values()) + sum(dd_shapes.values())
         + sum(physics_shapes.values()) + sum(cli_shapes.values())
         + sum(serial_shapes.values()) + sum(kinetic_shapes.values())
-        + sum(acinoset_shapes.values()) + sum(analysis_shapes.values()),
+        + sum(acinoset_shapes.values()) + sum(analysis_shapes.values())
+        + sum(studies_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
                              "physics": shape_keys(physics_shapes),
@@ -2827,7 +3235,8 @@ def main():
                              "serial_cli": shape_keys(serial_shapes),
                              "kinetic_cli": shape_keys(kinetic_shapes),
                              "acinoset": shape_keys(acinoset_shapes),
-                             "analysis": shape_keys(analysis_shapes)},
+                             "analysis": shape_keys(analysis_shapes),
+                             "studies": shape_keys(studies_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

@@ -1,8 +1,9 @@
 """The agreement rule chip_smoke's dataset-CLI phase holds the port's
 per-mode means to against the JAX CLI run (``chip_smoke.cli_gap``), the
 force-plate phase's rule against the JAX float64 run
-(``chip_smoke.kinetic_gate``), and the artifact layout it compares
-(``chip_smoke.artifacts``), on made-up values.
+(``chip_smoke.kinetic_gate``), the studies phase's rule for the
+degradation sweep (``chip_smoke.sweep_gate``), and the artifact layout it
+compares (``chip_smoke.artifacts``), on made-up values.
 """
 import importlib.util
 import json
@@ -123,3 +124,42 @@ def test_kinetic_gate(port, f32, ok):
     assert g["rel_f32"] == pytest.approx((port - f32) / f32, abs=1e-15)
     assert g["jax_f32_vs_f64"] == pytest.approx((f32 - 19.3) / 19.3,
                                                 abs=1e-15)
+
+
+@pytest.mark.parametrize("port, f32, ok, aside", [
+    (40.0, 40.1, True, False),       # equal to JAX float64
+    (40.79, 40.1, True, False),      # +1.98 %, inside
+    (39.21, 40.1, True, False),      # -1.98 %, inside
+    (40.9, 40.1, False, False),      # +2.25 %, outside
+    (39.1, 40.1, False, False),      # -2.25 %, outside the other way
+    (44.0, 41.0, True, True),        # JAX float32 +2.5 % off its float64:
+    (36.0, 38.9, True, True),        # set aside, either way
+    (40.9, 40.79, False, False)])    # JAX float32 +1.98 %: still gated
+def test_sweep_gate(port, f32, ok, aside):
+    """A degradation-sweep mean against JAX float64 (here 40.0) within 2 %
+    either way, unless JAX float32 itself misses its float64 by more than
+    2 % at that rate: then it is printed, not gated."""
+    g = cs.sweep_gate(port, 40.0, f32)
+    assert g["ok"] is ok and g["set_aside"] is aside
+    assert g["tol"] == 0.02
+    assert g["rel_f64"] == pytest.approx((port - 40.0) / 40.0, abs=1e-15)
+    assert g["jax_f32_vs_f64"] == pytest.approx((f32 - 40.0) / 40.0,
+                                                abs=1e-15)
+
+
+def test_sweep_agree_gates_recorded_rates_only():
+    """``sweep_agree`` gates each column at the rates both JAX runs
+    recorded, and prints the others ungated."""
+    rep = {"rows": [dict(rate=r, default_mpjpe=40.0 + r, dd_mpjpe=30.0,
+                         physics_mpjpe=31.0) for r in (0.0, 8.0)],
+           "prior_ok": [[True], [True]], "per_trial": [{}, {}]}
+    f64 = [dict(rate=0.0, default_mpjpe=40.0, dd_mpjpe=30.3,
+                physics_mpjpe=35.0)]
+    f32 = [dict(rate=0.0, default_mpjpe=40.1, dd_mpjpe=30.0,
+                physics_mpjpe=31.0), dict(rate=8.0, default_mpjpe=1.0,
+                                          dd_mpjpe=1.0, physics_mpjpe=1.0)]
+    gates = cs.sweep_agree(rep, {"f64": {"rows": f64}, "f32": {"rows": f32}})
+    assert [(g["rate"], g["column"]) for g in gates] == [
+        (0.0, "default_mpjpe"), (0.0, "dd_mpjpe"), (0.0, "physics_mpjpe")]
+    assert [g["ok"] for g in gates] == [True, True, True]
+    assert [g["set_aside"] for g in gates] == [False, False, True]

@@ -6,7 +6,9 @@ then the physics stage on it with tiny schedules; render the first trial of the 
 set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
 (``run_monocular_batched``, multi-view), then the serial per-trial path on
 it (``run_monocular``, the default and physics-based modes, tiny
-schedules, priors trained on small procedural tables), and import the
+schedules, priors trained on small procedural tables), the model
+selection and the batched data-driven ablation (``--run_data_driven_
+ablation_study --batched``) on it, and import the
 force-plate analysis and the static GRF solver and run the solver on a
 short trajectory, and write, read and assemble the first trial's pairwise
 pseudo-measurements (``data/ppm``); then check
@@ -121,6 +123,22 @@ SCRIPT = textwrap.dedent("""
     assert os.path.exists(os.path.join(base, "grf", "data_synth.csv"))
     assert rep["physics-based"]["per_trial"][os.path.join(d, c, t)][
         "attempt"] == 1
+    from cheetah_pose_estimation_tpu_torch.pipeline import studies
+    dataset.save_pose_dataset(os.path.join(tmp, "priors",
+                                           "validation_dataset.csv"), val)
+    sel = studies.model_selection_analysis(
+        dset, pose_components=(1,), window_sizes=(1,), out_dir=tmp,
+        device="cpu")
+    assert [len(v) for v in sel.values()] == [1, 1, 2, 2, 2]
+    pbatch.PROBE_STAGES, pbatch.FULL_STAGES = ((10.0, 1),), ((1.0, 2),)
+    rep = run_dataset.main(["--run_data_driven_ablation_study", "--batched",
+                            "--root_dir", tmp, "--out_dir_prefix",
+                            os.path.join(tmp, "out"), "--device", "cpu"],
+                           report={})
+    rows = rep["studies"]["dd_ablation"]["result"]
+    assert [r["n"] for r in rows] == [1] * 4, rows
+    assert os.path.exists(os.path.join(tmp, "out",
+                                       "data_driven_ablation_results.csv"))
     from cheetah_pose_estimation_tpu_torch.pipeline import results
     from cheetah_pose_estimation_tpu_torch.solver import static_grf
     qk = torch.as_tensor(syn.gallop_trajectory(6, fps=200.0, seed=0))
