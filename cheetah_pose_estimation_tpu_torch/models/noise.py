@@ -80,6 +80,23 @@ _Q_STD = np.array([
 
 Q = _Q_STD**2
 
+# 3D kinematic-tracking weights M (the physics mode without 2D
+# reprojections tracks its kinematic warm start, reference
+# ``kinematic_cost`` acinoset_misc.py:533-588), in relative-angle order
+# before masking (``skeleton._A_REL_FULL`` rows).
+KINEMATIC_M = np.array([
+    10, 10, 10, 5, 5, 5,
+    0, 5, 5,
+    0, 2, 2,
+    0, 5, 5,
+    0, 5, 5,
+    0, 5, 0, 0, 2, 0, 0, 1, 0,
+    0, 5, 0, 0, 2, 0, 0, 1, 0,
+    0, 5, 0, 0, 2, 0,
+    0, 5, 0, 0, 2, 0,
+    0, 1, 0, 0, 1, 0,
+], dtype=float)
+
 # per-coordinate EOM model-mismatch floor (body-weight units), in q order:
 # the RMS of the eliminated EOM slack at dynamically consistent solutions;
 # the physics stage's epsilon-insensitive slack band is a multiple of it

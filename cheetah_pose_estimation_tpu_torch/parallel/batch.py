@@ -212,7 +212,7 @@ def make_kinematic_multistart(fte, margin: float = MULTISTART_MARGIN,
     """The production monocular solver: probe-multistart over the default
     annealing schedule of ``KinematicFTE.make_solver`` (probe = its first
     stage as a fixed-length solve, full = the remaining stages)."""
-    probe = fte.make_solver(stages=PROBE_STAGES, driver="fixed",
+    probe = fte.make_solver(stages=PROBE_STAGES, driver="scan",
                             linear_solver=linear_solver)
     full = fte.make_solver(stages=FULL_STAGES, linear_solver=linear_solver)
     return make_multistart_probe(probe, full, margin=margin)

@@ -11,8 +11,7 @@ correction and anchored polish (:func:`_anchor_polish`), the data-driven
 mode (:func:`run_data_driven`, also bench.py's stage 1.5, ``bench.py:305-397``)
 and the physics-based mode (:func:`run_physics`, also bench.py's stage 2,
 ``bench.py:440-487``). One card serves every group: the JAX package's trial
-mesh (``_resolve_mesh``, ``_pad_group``) is not ported, nor is the rolling
-AR refinement (``motion_prior_rolling``).
+mesh (``_resolve_mesh``, ``_pad_group``) is not ported.
 """
 from __future__ import annotations
 
@@ -84,7 +83,8 @@ def run_data_driven(q_free: torch.Tensor, batched: kin.KinematicData,
                     subject: SubjectParams,
                     stages: Tuple[Tuple[float, int], ...] = SOLVE_STAGES,
                     scan_stages: Tuple[Tuple[float, int], ...] = SCAN_STAGES,
-                    timings: Optional[dict] = None):
+                    timings: Optional[dict] = None, *,
+                    motion_prior_rolling: int = 0):
     """Data-driven monocular reconstruction of a batch, warm-started from
     the prior-free (stage-1) solutions ``q_free`` (B, N, 54).
 
@@ -102,7 +102,11 @@ def run_data_driven(q_free: torch.Tensor, batched: kin.KinematicData,
     5. AR anchors from the bootstrap with adaptive weights (non-finite ones
        raise); gate-rejected trials get no AR frames and no pose prior in
        the dd solve;
-    6. the dd solve (pose prior + AR anchor + base anchor);
+    6. the dd solve (pose prior + AR anchor + base anchor), then
+       ``motion_prior_rolling`` refinements (JAX ``batched.py:316-331``):
+       per lane the AR predictions recomputed from the current solution on
+       every real frame (gate-rejected trials too; the weights are kept)
+       and the dd solve again from it;
     7. camera rays and body-scale medians, then the depth line-scan;
     8. trials the scan moved are shifted along their rays and re-polished
        by the dd solver, with the base pinned to the shifted base and AR
@@ -111,8 +115,8 @@ def run_data_driven(q_free: torch.Tensor, batched: kin.KinematicData,
     9. gate-rejected trials the scan left unmoved ship ``q_free``.
 
     With a ``timings`` dict, the wall seconds of each phase (chain, gate,
-    anchors, dd, depth_host, scan, repolish) are added to it, each phase
-    ending in a device sync.
+    anchors, dd, rolling, depth_host, scan, repolish) are added to it, each
+    phase ending in a device sync.
 
     Returns (q (B, N, 54) tensor, prior_ok (B,) bool numpy, shifts (B,)
     numpy metres)."""
@@ -160,9 +164,15 @@ def run_data_driven(q_free: torch.Tensor, batched: kin.KinematicData,
                         tens(vl * prior_ok[:, None].astype(np.float64))),
         gmm_scale=tens(prior_ok.astype(np.float64)))
     phase("anchors")
-    # 6: the dd solve
+    # 6: the dd solve, and the rolling AR refinements
     st_dd = dd(qb, bat)
     phase("dd")
+    for _ in range(motion_prior_rolling):
+        yp_r, vl_r, _ = _anchors(motion_model, _np(st_dd.q), fv)
+        bat = bat._replace(ar=bat.ar._replace(y_pred=tens(yp_r),
+                                              valid=tens(vl_r)))
+        st_dd = dd(st_dd.q, bat)
+        phase("rolling")
     # 7: rays, body-scale medians, line-scan
     qs_np = _np(st_dd.q)
     n_real = fv.sum(1).astype(int)
@@ -386,6 +396,7 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
                                                   "data-driven"),
                           data_driven_dataset: Optional[str] = None,
                           dtype: torch.dtype = torch.float32,
+                          motion_prior_rolling: int = 0,
                           ground_anchor: bool = True,
                           verbose: bool = True,
                           device: DeviceLike = None,
@@ -402,7 +413,8 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
       (``fte_kinematic_orig_<cam>``);
     * data-driven: the heading multistart without priors, then
       :func:`run_data_driven` with the priors trained from
-      ``data_driven_dataset`` (``fte_kinematic_<cam>``);
+      ``data_driven_dataset`` and ``motion_prior_rolling`` AR refinements
+      (``fte_kinematic_<cam>``);
     * physics-based: :func:`run_physics_batched` (``fte_kinetic_<cam>``).
 
     ``opt_time_s`` of a trial is its group's solve wall (the chain, scan
@@ -456,7 +468,7 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
                 q, prior_ok, shifts = run_data_driven(
                     q_free, batched, convert.gmm_prior(
                         gp, len(ests), device=dev, dtype=dtype),
-                    mm, subject)
+                    mm, subject, motion_prior_rolling=motion_prior_rolling)
                 rep.setdefault("prior_ok", []).extend(prior_ok.tolist())
                 rep.setdefault("scan_shifts", []).extend(
                     np.asarray(shifts, float).tolist())

@@ -275,7 +275,10 @@ def make_depth_linescan(subject: SubjectParams,
 
     fte = kin.KinematicFTE(kin.KinematicConfig(fisheye=True, robust=True),
                            subject)
-    run = fte.make_solver(stages=stages, driver="fixed")
+    # the JAX package's driver "fixed": the fixed-length loop for one
+    # stage, the while loop for more
+    run = fte.make_solver(stages=stages,
+                          driver="scan" if len(stages) == 1 else "while")
     offs = SCAN_SHIFTS
     ZI = offs.index(0.0)
     Kn = len(offs)

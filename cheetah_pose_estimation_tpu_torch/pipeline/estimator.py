@@ -11,8 +11,10 @@ synthesized force profiles, and the serial per-trial solves
 at its own length on the device of the run (the card by default), and the
 force-plate pipeline's GRF solves on a saved solution (``estimate_grf``,
 the torque-anchored re-estimation; ``estimate_static_grf``, per frame).
-Not ported: the joint shutter-delay solve and the rolling AR refinement
-(ROADMAP Queue 1 #8, #11). Host work is numpy and float64 torch on the CPU.
+The multi-view solve can take the per-camera shutter delays as unknowns
+(``enable_shutter_delay_estimation``), and the data-driven mode can roll
+its AR anchors (``motion_prior_rolling``). Host work is numpy and float64
+torch on the CPU.
 
 Directory layout consumed (the reference's):
 
@@ -153,6 +155,10 @@ class CheetahEstimator:
     grf_z: Optional[np.ndarray] = None    # (N, 4)
     grf_xy: Optional[np.ndarray] = None   # (N, 4, 4)
     shutter_delay: Optional[np.ndarray] = None  # (C,) seconds
+    # the last solve's cost functions and its problem (tensors, a batch of
+    # one): what solution_details evaluates
+    fte: Optional[object] = None
+    problem: Optional[object] = None
 
     @property
     def scale_forces_by(self) -> float:
@@ -189,6 +195,31 @@ class CheetahEstimator:
             ddq[0] = ddq[1]
             dq[0] = dq[1] - h * ddq[1]
         return dq, ddq
+
+    def solution_details(self) -> Dict[str, float]:
+        """Print and return the total objective, the per-term costs of a
+        kinematic solve at annealing scale 1 (their sum is the total) and
+        the estimated shutter delays (JAX ``estimator.py:200-225``). After
+        a physics solve, whose cost functions have no per-term breakdown,
+        the total is the saved objective."""
+        out: Dict[str, float] = {}
+        if self.q is not None and self.problem is not None and hasattr(
+                self.fte, "cost_terms"):
+            q = torch.as_tensor(self.q, dtype=self.problem.h.dtype,
+                                device=self.problem.h.device)[None]
+            terms = self.fte.cost_terms(q, self.problem)
+            out.update({k: float(v[0]) for k, v in terms.items()})
+            out["cost"] = float(sum(out.values()))
+        elif self.obj_cost is not None:
+            out["cost"] = float(self.obj_cost)
+        print("Total cost:", out.get("cost"))
+        for k, v in out.items():
+            if k != "cost":
+                print(f"-- {k}: {v}")
+        if self.shutter_delay is not None:
+            print("Shutter delay estimation:",
+                  list(np.asarray(self.shutter_delay)))
+        return out
 
     def is_solution_acceptable(self) -> bool:
         """Finite objective and state (non-finite values are the LM
@@ -451,6 +482,14 @@ def estimate_kinematics(est: CheetahEstimator,
       shift and a short polish with the ground, penetration and no-slip
       terms, kept when the plain objective gets no more than 5 % worse
       (no shift: no polish);
+    * on a multi-view trial with ``enable_shutter_delay_estimation``, the
+      solve with the live shutter coupling, then the joint (q, tau) solve
+      of the per-camera delays from zero (``make_joint_shutter_solver``);
+      camera 0's delay is set to exactly 0 and the delays go into
+      ``est.shutter_delay`` and the problem's ``sd_tau``;
+    * with the AR prior and ``motion_prior_rolling`` > 0, that many
+      refinements: the AR anchors and their adaptive weights recomputed
+      from the current solution, then the solve again from it;
     * in the data-driven mode with ``depth_scan`` and an accepted prior, the
       depth line-scan, and at a nonzero shift the re-polish by the full
       solver from the shifted trajectory, its base pin and AR anchors
@@ -465,23 +504,11 @@ def estimate_kinematics(est: CheetahEstimator,
     (data-driven). With ``report``, the decisions taken go into it:
     ``prior_ok``, ``scan_shift``, ``polish_ray_shift``,
     ``polish_stance_frames``, ``polish_changed``. Returns whether the
-    solution is finite.
-
-    Raises ``NotImplementedError`` for the joint shutter-delay solve
-    (``enable_shutter_delay_estimation`` on a multi-view trial) and for
-    ``motion_prior_rolling > 0``."""
+    solution is finite."""
     from . import depth_anchor as danchor
     from . import initialization as init_mod
 
     p, scene = est.params, est.scene
-    if p.enable_shutter_delay_estimation and scene.cam_idx is None:
-        raise NotImplementedError(
-            "the joint shutter-delay solve is not ported (ROADMAP Queue 1 "
-            "#8)")
-    if motion_prior_rolling > 0:
-        raise NotImplementedError(
-            "the rolling AR refinement (motion_prior_rolling) is not ported "
-            "(ROADMAP Queue 1 #11)")
     dev = resolve_device(device)
     rep = {} if report is None else report
     tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -549,10 +576,12 @@ def estimate_kinematics(est: CheetahEstimator,
         q0 = q_boot
     use_gmm = use_gmm and prior_ok
 
+    use_shutter = p.enable_shutter_delay_estimation and scene.cam_idx is None
     cfg = dataclasses.replace(
-        base_cfg, use_gmm=use_gmm, use_ar=use_ar,
+        base_cfg, use_gmm=use_gmm, use_ar=use_ar, live_shutter=use_shutter,
         **(DD_BASE_ANCHOR if (use_gmm or use_ar) else {}))
     fte = kin.KinematicFTE(cfg, est.subject)
+    est.fte = fte
     run = fte.make_solver()
     if scene.cam_idx is not None and not boot_ran:
         # a cold monocular solve escapes bad heading basins by the
@@ -560,6 +589,27 @@ def estimate_kinematics(est: CheetahEstimator,
         state = pbatch.multistart_single(run, q0[0], data)
     else:
         state = run(q0, data)
+    if use_shutter:
+        # the per-camera delays as unknowns beside the trajectory (JAX
+        # estimator.py:561-593): the bordered banded system, from zero
+        bst = fte.make_joint_shutter_solver()(
+            state.q, state.q.new_zeros((1, data.meas.shape[2])), data)
+        tau = _np(bst.tau[0])
+        tau[0] = 0.0        # camera 0 is the anchor (pinned to ~1e-9)
+        data = data._replace(sd_tau=tens(tau)[None])
+        state = state._replace(q=bst.q, cost=bst.cost, it=state.it + bst.it)
+        est.shutter_delay = tau
+        est.data = est.data._replace(sd_tau=tau)
+    if use_ar and motion_prior_rolling > 0:
+        # rolling AR refinement (JAX estimator.py:595-605): the anchors
+        # from the current solution, then the solve again from it
+        for _ in range(motion_prior_rolling):
+            x_cur = sk.relative_pose(torch.as_tensor(_np(state.q[0]))).numpy()
+            y_pred, valid = armodel.anchor_predictions(mm, x_cur)
+            w_ad = armodel.adaptive_motion_weights(mm, y_pred, x_cur, valid)
+            data = data._replace(ar=kin.ARAnchor(
+                tens(y_pred)[None], tens(w_ad)[None], tens(valid)[None]))
+            state = run(state.q, data)
     est.q = _np(state.q[0])
     monocular = scene.cam_idx is not None and not p.kinetic_dataset
     if ground_anchor and monocular:
@@ -622,6 +672,7 @@ def estimate_kinematics(est: CheetahEstimator,
                 print(f"depth line-scan shift: {float(shifts[0]):+.2f} m")
     est.opt_time_s = time.time() - t0
     est.obj_cost = float(fte.objective(state.q, data)[0])
+    est.problem = data
     ok = bool(np.isfinite(est.obj_cost)) and bool(np.all(np.isfinite(est.q)))
     if solver_output:
         print(f"solved in {est.opt_time_s:.1f}s, it={int(state.it[0])}, "
@@ -701,8 +752,11 @@ def estimate_kinetics(est: CheetahEstimator,
     default training table, cached beside it) unless
     ``disable_pose_prior``; ``disable_motion_prior`` drops the torque and
     marker-smoothing energy (a tiny torque ridge keeps the elimination
-    nonsingular). ``enable_lcp`` and ``use_2d_reprojections=False`` raise
-    ``NotImplementedError`` (ROADMAP Queue 1 #10).
+    nonsingular). ``enable_lcp`` adds the complementarity penalty on the
+    loaded feet's heights; ``use_2d_reprojections=False`` solves without
+    the reprojections (their weights zeroed), tracking the warm start's
+    relative angles in 3D instead of the marker-smoothing energy (JAX
+    ``estimator.py:802-823``).
 
     The solved q, objective, torques and GRFs go into ``est``; with
     ``save`` a finite solution is written to ``fte_kinetic``
@@ -744,6 +798,8 @@ def estimate_kinetics(est: CheetahEstimator,
     else:
         grf_fixed, grf_xy_fixed = np.zeros((N, 4)), np.zeros((N, 4, 4))
     data = est.data
+    if not use_2d_reprojections:
+        data = data._replace(weight=np.zeros_like(np.asarray(data.weight)))
     if use_gmm:
         dset = _default_data_driven_dataset()
         tab = prior_ds.load_pose_dataset(dset)
@@ -758,6 +814,7 @@ def estimate_kinetics(est: CheetahEstimator,
     kbat, qw = pbatch.pad_and_stack_kinetic([kd], [q_warm], dtype=dtype,
                                             device=dev)
     state = fte.make_solver()(qw, kbat)
+    est.fte, est.problem = fte, kbat
     est.q = _np(state.q[0])
     est.opt_time_s = time.time() - t0
     est.obj_cost = float(fte.objective(state.q, kbat)[0])

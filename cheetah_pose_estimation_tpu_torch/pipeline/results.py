@@ -5,13 +5,14 @@ Port of part of ``cheetah_pose_estimation_tpu/pipeline/results.py``: 2D
 reprojection error against hand labels (on the CSV tables, without pandas),
 the contact file's per-role stance table, stance-normalised gait curves
 (joint angles, torques, power per limb role), the friction-polygon check of
-solved GRFs, the torque and gait plots, the per-camera robustness of
+solved GRFs, the ground complementarity check (``check_lcp``), the torque
+and gait plots, the per-camera robustness of
 one trial (``--run_analysis``), and the studies' figures (the ablation
 bars, the model-selection and grid-search curves; the studies' CSVs and
 pickle are read without pandas). The plots import matplotlib when called
 and write nothing where it is not installed; every metric is also returned
 as data. The rest of the JAX module (the GRF error against force plates,
-the LCP and contact checks, the animated torque plot) is not ported.
+the contact check, the animated torque plot) is not ported.
 """
 from __future__ import annotations
 
@@ -199,6 +200,18 @@ def check_grf(grf_xy: np.ndarray) -> Dict[str, float]:
     both_y = (g[..., 1] > GRF_ACTIVE) & (g[..., 3] > GRF_ACTIVE)
     n_bad = int(both_x.sum() + both_y.sum())
     return {"n_invalid": n_bad, "ok": n_bad == 0}
+
+
+def check_lcp(grf_z: np.ndarray, foot_heights: np.ndarray,
+              tol: float = 1e-2) -> Dict[str, float]:
+    """Epsilon-relaxed ground complementarity (JAX ``results.py:199-208``):
+    GRFz * max(foot height, 0), both (N, 4), should be ~0, the target of
+    the physics solve's ``enable_lcp`` penalty. Returns its largest and
+    mean magnitude and whether the largest is below ``tol``."""
+    comp = np.asarray(grf_z) * np.maximum(np.asarray(foot_heights), 0.0)
+    return {"max_violation": float(np.max(np.abs(comp))),
+            "mean_violation": float(np.mean(np.abs(comp))),
+            "ok": bool(np.max(np.abs(comp)) < tol)}
 
 
 def _pyplot():

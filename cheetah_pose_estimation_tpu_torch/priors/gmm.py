@@ -6,6 +6,13 @@ it has no tolerance test), and the export of (means,
 precisions, log-normalisers) that the solver's pose-prior term reads
 (``solver.kinematic.GMMPrior``). Training runs in float64 on the device the
 caller names (the card by default).
+
+The k-means++ draw is ``jax.random``'s, recomputed in numpy on the host
+(:class:`_JaxKey`): threefry2x32, ``PRNGKey(seed)``, ``split``,
+``randint`` and ``categorical`` (Gumbel-max) as jax 0.9.0 computes them in
+float64 (x64 on) with its default ``jax_threefry_partitionable``. So a fit
+with the same seed starts from the same means as the JAX package's and
+ends in the same EM optimum.
 """
 from __future__ import annotations
 
@@ -31,20 +38,96 @@ class GMMParams(NamedTuple):
         return self.means.shape[0]
 
 
-def _kmeanspp_init(generator: torch.Generator, X: torch.Tensor,
-                   k: int) -> torch.Tensor:
-    """k-means++ seeding: the first centre uniformly, each next one drawn
-    with probability proportional to its squared distance (+1e-12) from the
-    nearest centre so far. ``generator`` and ``X`` must be on one device."""
-    n = X.shape[0]
-    centers = X.new_zeros((k, X.shape[1]))
-    idx = torch.randint(n, (1,), generator=generator, device=X.device)
-    centers[0] = X[idx[0]]
-    for i in range(1, k):
-        d2 = ((X[:, None, :] - centers[None, :i, :]) ** 2).sum(-1).amin(1)
-        idx = torch.multinomial(d2 + 1e-12, 1, generator=generator)
-        centers[i] = X[idx[0]]
-    return centers
+_U32 = np.uint32
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 block cipher (20 rounds) of jax's PRNG on uint32
+    arrays: key (k1, k2), counters (x1, x2) -> two uint32 words."""
+    ks = (_U32(k1), _U32(k2), _U32(k1) ^ _U32(k2) ^ _U32(0x1BD11BDA))
+    x = [np.asarray(x1, _U32) + ks[0], np.asarray(x2, _U32) + ks[1]]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = (x[1] << _U32(r)) | (x[1] >> _U32(32 - r))
+            x[1] = x[0] ^ x[1]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
+    return x[0], x[1]
+
+
+class _JaxKey:
+    """A raw threefry key (two uint32 words) and the ``jax.random``
+    functions k-means++ draws with, as jax 0.9.0 computes them with x64 on
+    and ``jax_threefry_partitionable`` (its default): every draw of shape
+    S hashes the flat index i of each element as the counter pair (i >>
+    32, i & 0xffffffff)."""
+
+    def __init__(self, k1, k2):
+        self.k = (_U32(k1), _U32(k2))
+
+    @classmethod
+    def from_seed(cls, seed: int) -> "_JaxKey":
+        """``jax.random.PRNGKey(seed)``: (seed >> 32, seed & 0xffffffff)."""
+        seed = int(seed)
+        return cls((seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF)
+
+    def _bits(self, n: int):
+        i = np.arange(n, dtype=np.uint64)
+        return _threefry2x32(*self.k, (i >> np.uint64(32)).astype(_U32),
+                             (i & np.uint64(0xFFFFFFFF)).astype(_U32))
+
+    def split(self, num: int = 2):
+        """``jax.random.split``."""
+        b1, b2 = self._bits(num)
+        return [_JaxKey(a, b) for a, b in zip(b1, b2)]
+
+    def bits64(self, n: int) -> np.ndarray:
+        """(n,) uint64 random bits (``random_bits`` of width 64)."""
+        b1, b2 = self._bits(n)
+        return (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
+
+    def randint(self, maxval: int) -> int:
+        """``jax.random.randint(key, (), 0, maxval)`` for int64: two 64-bit
+        draws, reduced by the span with jax's multiplier."""
+        k1, k2 = self.split()
+        hi, lo = int(k1.bits64(1)[0]), int(k2.bits64(1)[0])
+        span = int(maxval)
+        mult = (2 ** 32 % span) ** 2 % span
+        return ((hi % span) * mult + lo % span) % span
+
+    def uniform(self, n: int) -> np.ndarray:
+        """(n,) float64 ``jax.random.uniform`` on [tiny, 1): the top 52
+        bits as a mantissa in [1, 2), minus 1."""
+        tiny = np.finfo(np.float64).tiny
+        bits = (self.bits64(n) >> np.uint64(12)) \
+            | np.float64(1.0).view(np.uint64)
+        f = bits.view(np.float64) - 1.0
+        return np.maximum(tiny, f * (1.0 - tiny) + tiny)
+
+    def categorical(self, logits: np.ndarray) -> int:
+        """``jax.random.categorical`` of a 1-D float64 ``logits``: the
+        argmax of the logits plus Gumbel noise -log(-log u)."""
+        return int(np.argmax(-np.log(-np.log(self.uniform(len(logits))))
+                             + logits))
+
+
+def kmeanspp_indices(X: np.ndarray, k: int, seed: int) -> list:
+    """The row indices of X that the JAX package's
+    ``_kmeanspp_init(PRNGKey(seed), X, k)`` picks as centres (JAX
+    ``priors/gmm.py:41-60``), in float64 on the host: the first uniformly
+    (``randint``), each next one by ``categorical`` over log(d2 + 1e-12),
+    d2 the squared distance to the nearest centre so far."""
+    X = np.asarray(X, np.float64)
+    key, sub = _JaxKey.from_seed(seed).split()
+    idx = [sub.randint(X.shape[0])]
+    d2 = ((X - X[idx[0]]) ** 2).sum(-1)
+    for _ in range(1, k):
+        key, sub = key.split()
+        idx.append(sub.categorical(np.log(d2 + 1e-12)))
+        d2 = np.minimum(d2, ((X - X[idx[-1]]) ** 2).sum(-1))
+    return idx
 
 
 def _log_gaussians(X: torch.Tensor, means: torch.Tensor, covs: torch.Tensor,
@@ -76,7 +159,8 @@ def fit(X: np.ndarray, n_components: int, seed: int = 42,
     if cache_dir is not None:
         m = hashlib.md5()
         m.update(np.ascontiguousarray(np.asarray(X, np.float64)).tobytes())
-        m.update(repr((n_components, seed, max_iter, reg_covar)).encode())
+        m.update(repr((n_components, seed, max_iter, reg_covar,
+                       "jax-kmeans++")).encode())
         cache_path = os.path.join(cache_dir,
                                   f"gmm_model_{m.hexdigest()}.torch.pkl")
         if os.path.isfile(cache_path):
@@ -97,23 +181,16 @@ def fit(X: np.ndarray, n_components: int, seed: int = 42,
 def _fit(X, n_components: int, seed: int, max_iter: int, reg_covar: float,
          means0: Optional[np.ndarray] = None,
          device: DeviceLike = None) -> GMMParams:
-    """EM from k-means++ means drawn by a CPU ``torch.Generator`` seeded
-    with ``seed`` (the same draw on every device), or from ``means0``.
-
-    A torch generator cannot reproduce ``jax.random``, so the JAX package's
-    own k-means++ draw (``_kmeanspp_init(PRNGKey(seed), X, k)``) differs;
-    passing that draw as ``means0`` is how the EM steps are held against
-    the JAX ones."""
+    """EM from the k-means++ means of JAX's draw with ``seed``
+    (:func:`kmeanspp_indices`, on the host), or from ``means0``."""
     dev = resolve_device(device)
-    Xc = torch.tensor(np.asarray(X, np.float64))
-    n, D = Xc.shape
+    Xn = np.asarray(X, np.float64)
+    n, D = Xn.shape
     k = n_components
     if means0 is None:
-        means = _kmeanspp_init(torch.Generator().manual_seed(seed), Xc, k)
-    else:
-        means = torch.tensor(np.asarray(means0, np.float64))
-    X = Xc.to(dev)
-    means = means.to(dev)
+        means0 = Xn[kmeanspp_indices(Xn, k, seed)]
+    X = torch.tensor(Xn, device=dev)
+    means = torch.tensor(np.asarray(means0, np.float64), device=dev)
     eye = torch.eye(D, dtype=X.dtype, device=dev)
     covs = (torch.cov(X.T) + reg_covar * eye).expand(k, D, D).clone()
     w = torch.full((k,), 1.0 / k, dtype=X.dtype, device=dev)

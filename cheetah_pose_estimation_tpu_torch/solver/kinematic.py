@@ -10,9 +10,11 @@ base-pose anchor; and for the monocular ground-plane polish the ground,
 penetration and no-slip terms. Every function takes a batch of trials:
 q (B, N, 54), ``KinematicData`` leaves with a leading trial axis, and a
 per-trial annealing scale (B,). The measurement loss is the redescending
-one or, for the physics stage, the Huber loss (``loss="huber"``). The
-live-shutter coupling is not ported yet and raises ``NotImplementedError``
-when switched on.
+one or, for the physics stage, the Huber loss (``loss="huber"``); the JAX
+package has no other, and any other name raises ``NotImplementedError``.
+With ``live_shutter`` the per-camera shutter shift follows the current
+trajectory, and :meth:`KinematicFTE.make_joint_shutter_solver` solves the
+delays jointly with it (the bordered system of ``gn.lm_solve_bordered``).
 """
 from __future__ import annotations
 
@@ -299,13 +301,10 @@ class KinematicFTE:
     batched over trials."""
 
     def __init__(self, config: KinematicConfig, subject: SubjectParams):
-        unported = [name for name, on in (
-            ("live_shutter", config.live_shutter),
-            ("loss=" + config.loss,
-             config.loss not in ("redescending", "huber"))) if on]
-        if unported:
+        if config.loss not in ("redescending", "huber"):
             raise NotImplementedError(
-                f"KinematicConfig terms not ported yet: {unported}")
+                f"KinematicConfig loss={config.loss!r}: the measurement "
+                "losses are 'redescending' and 'huber'")
         self.config = config
         self.subject = subject
         self._G, self._lo, self._hi = joint_limit_table(
@@ -334,14 +333,32 @@ class KinematicFTE:
         return 3.0 * sv, 10.0 * sv, 20.0 * sv
 
     # -- measurement ---------------------------------------------------------
-    def _shutter_shift(self, data: KinematicData, N: int) -> torch.Tensor:
+    @staticmethod
+    def _base_derivatives(q: torch.Tensor, h: torch.Tensor):
+        """Implicit-Euler base velocity and acceleration (B, N, 3) of the
+        trajectory, zero on the first one and two frames (JAX
+        ``kinematic.py:347-356``)."""
+        hv = h.view(-1, 1, 1)
+        qb = q[..., :3]
+        zero = torch.zeros_like(qb[:, :1])
+        vel = torch.cat([zero, (qb[:, 1:] - qb[:, :-1]) / hv], 1)
+        acc = torch.cat([zero, zero, (vel[:, 2:] - vel[:, 1:-1]) / hv], 1)
+        return vel, acc[:, :q.shape[1]]          # (a 1-frame q: acc 0)
+
+    def _shutter_shift(self, data: KinematicData, N: int,
+                       q: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, N, C, 3) per-frame per-camera world shift tau*vel +
-        tau^2*acc from the lagged sd_vel/sd_acc constants (zero by
-        default; the live coupling is not ported)."""
+        tau^2*acc (JAX ``kinematic.py:358-373``): with ``live_shutter`` the
+        base derivatives of the current ``q``, else the lagged sd_vel/sd_acc
+        constants (zero by default)."""
         tau = data.sd_tau
         B, C = data.meas.shape[0], data.meas.shape[2]
-        shift = (data.sd_vel[:, :, None, :] * tau[:, None, :, None]
-                 + data.sd_acc[:, :, None, :] * (tau ** 2)[:, None, :, None])
+        if self.config.live_shutter and q is not None:
+            vel, acc = self._base_derivatives(q, data.h)
+        else:
+            vel, acc = data.sd_vel, data.sd_acc
+        shift = (vel[:, :, None, :] * tau[:, None, :, None]
+                 + acc[:, :, None, :] * (tau ** 2)[:, None, :, None])
         return shift.expand(B, N, C, 3)
 
     def _meas_weights(self, data: KinematicData) -> torch.Tensor:
@@ -360,10 +377,11 @@ class KinematicFTE:
         return (cam.K[:, None, :, None], cam.D[:, None, :, None],
                 cam.R[:, None, :, None], cam.t[:, None, :, None])
 
-    def _points(self, pts: torch.Tensor, data: KinematicData) -> torch.Tensor:
-        """Marker positions (B, N, 24, 3) -> per-camera shifted (B, N, C,
-        24, 3)."""
-        shift = self._shutter_shift(data, pts.shape[1])
+    def _points(self, pts: torch.Tensor, data: KinematicData,
+                q: torch.Tensor) -> torch.Tensor:
+        """Marker positions (B, N, 24, 3) of q -> per-camera shifted (B, N,
+        C, 24, 3)."""
+        shift = self._shutter_shift(data, pts.shape[1], q)
         return pts[:, :, None] + shift[:, :, :, None, :]
 
     # -- full cost -----------------------------------------------------------
@@ -376,7 +394,7 @@ class KinematicFTE:
         pts = sk.fk_markers_linear(q, self.subject)
         proj = camera.project_fisheye if cfg.fisheye else \
             camera.project_pinhole
-        uv = proj(self._points(pts, data), *self._cams(data))
+        uv = proj(self._points(pts, data, q), *self._cams(data))
         res = uv[..., None] - data.meas                  # (B, N, C, L, 2, W)
         if cfg.robust:
             loss = losses.huber if cfg.loss == "huber" else \
@@ -584,7 +602,7 @@ class KinematicFTE:
         pts, Jm = sk.fk_markers_and_jacobian(q, self.subject)
         proj = camera.project_fisheye_and_jacobian if cfg.fisheye else \
             camera.project_pinhole_and_jacobian
-        uv, Juv = proj(self._points(pts, data), *self._cams(data))
+        uv, Juv = proj(self._points(pts, data, q), *self._cams(data))
         res = uv[..., None] - data.meas                          # (B,N,C,L,2,W)
         w = self._meas_weights(data).expand(res.shape)
         if cfg.robust:
@@ -603,6 +621,9 @@ class KinematicFTE:
         H_acc = acc_banded(data.h, data.acc_weight, data.frame_valid)
         g = g + self.acc_gradient(q, data, H_acc)
         Hdiag = Hdiag + H_acc.diag
+
+        if cfg.live_shutter:
+            g = g + self._live_shutter_gradient(gw, Juv, data)
 
         if cfg.use_gmm:
             # d/dx of -log(p + eps) = p/(p+eps) sum_k gamma_k P_k (x - mu_k),
@@ -668,6 +689,111 @@ class KinematicFTE:
         Hdiag = Hdiag + (pad + cfg.tikhonov) * eye
         return g, banded.BlockBanded(diag=Hdiag, lower=lower)
 
+    def _live_shutter_gradient(self, gw: torch.Tensor, Juv: torch.Tensor,
+                               data: KinematicData) -> torch.Tensor:
+        """(B, N, 54) chain rule of the measurement cost through the live
+        shutter shift tau*vel(q) + tau^2*acc(q) (JAX ``kinematic.py:545``,
+        ``:562-582``): frame t's shift moves with the base translation of
+        frames t, t-1 and t-2. Its curvature is left to the LM damping, as
+        in JAX. ``gw`` (B, N, C, L, 2, W) are the measurement's gradient
+        weights and ``Juv`` (B, N, C, L, 2, 3) the projection Jacobians at
+        the shifted points."""
+        B, N = gw.shape[0], gw.shape[1]
+        dshift = torch.einsum("bncmdw,bncmdi->bnci", gw, Juv)     # (B,N,C,3)
+        tau = data.sd_tau.to(gw.dtype)
+        h = data.h.view(-1, 1)
+        frames = torch.arange(N, device=gw.device)
+        mv = (frames >= 1).to(gw.dtype)[None, :, None]           # vel, t >= 1
+        ma = (frames >= 2).to(gw.dtype)[None, :, None]           # acc, t >= 2
+        dv = torch.einsum("btci,bc->bti", dshift, tau / h)
+        da = torch.einsum("btci,bc->bti", dshift, (tau ** 2) / (h * h))
+        c0 = dv * mv + da * ma
+        c1 = -dv * mv - 2.0 * da * ma
+        c2 = da * ma
+        zero = torch.zeros_like(c0[:, :1])
+        base = c0 + torch.cat([c1[:, 1:], zero], 1) \
+            + torch.cat([c2[:, 2:], zero, zero], 1)[:, :N]
+        return torch.cat([base, gw.new_zeros(B, N, NQ - 3)], -1)
+
+    # -- joint shutter-delay solve (bordered system) ------------------------
+    def _border_terms(self, q: torch.Tensor, tau: torch.Tensor,
+                      data: KinematicData):
+        """GN border blocks of the per-camera shutter delays as unknowns
+        (JAX ``kinematic.py:696-741``): with r = proj(pts + tau_c vel +
+        tau_c^2 acc) - meas, dr/dtau_c = Juv (vel + 2 tau_c acc). Returns
+        (gtau (B, C), Bmat (B, N, 54, C), Htt (B, C)), summed over frames
+        with the measurement's GN weights at annealing scale 1."""
+        cfg = self.config
+        vel, acc = self._base_derivatives(q, data.h)
+        shift = (vel[:, :, None, :] * tau[:, None, :, None]
+                 + acc[:, :, None, :] * (tau ** 2)[:, None, :, None])
+        pts, Jm = sk.fk_markers_and_jacobian(q, self.subject)
+        proj = camera.project_fisheye_and_jacobian if cfg.fisheye else \
+            camera.project_pinhole_and_jacobian
+        uv, Juv = proj(pts[:, :, None] + shift[:, :, :, None, :],
+                       *self._cams(data))
+        res = uv[..., None] - data.meas
+        w = self._meas_weights(data).expand(res.shape)
+        if cfg.robust:
+            gw, hw = losses.gauss_newton_weights(
+                res, w, cfg.curvature_floor,
+                loss_params=self._loss_params(_per_lane(1.0, q)),
+                loss=cfg.loss)
+        else:
+            gw, hw = 2.0 * w * w * res, 2.0 * w * w * torch.ones_like(res)
+        svec = vel[:, :, None, :] + 2.0 * tau[:, None, :, None] \
+            * acc[:, :, None, :]                                   # (B,N,C,3)
+        Jtau = torch.einsum("bncmdi,bnci->bncmd", Juv, svec)
+        J = torch.einsum("bncmdi,bnmik->bncmdk", Juv, Jm)
+        hsum = hw.sum(-1)                                    # (B,N,C,L,2)
+        gtau = torch.einsum("bncmdw,bncmd->bc", gw, Jtau)
+        Htt = torch.einsum("bncmd,bncmd,bncmd->bc", hsum, Jtau, Jtau)
+        Bmat = torch.einsum("bncmd,bncmdk,bncmd->bnkc", hsum, J, Jtau)
+        return gtau, Bmat, Htt
+
+    def make_joint_shutter_solver(self, max_iters: int = 60,
+                                  ftol: float = 1e-9, lam0: float = 1e-2,
+                                  bound_weight: float = 1e8):
+        """Joint (q, tau) solve (JAX ``kinematic.py:743-788``): the
+        per-camera shutter delays are unknowns beside the trajectory,
+        coupled through the bordered banded system. Camera 0 is pinned (its
+        Htt gets 1e12: delays are relative) and |tau| <= h is a quadratic
+        hinge of weight ``bound_weight``. The config must have
+        ``live_shutter=True`` so the q-gradient carries the chain rule
+        through the shift. Returns run(q0 (B, N, 54), tau0 (B, C), data) ->
+        ``gn.BorderedState``."""
+        from . import gn as gn_mod
+
+        def run(q0: torch.Tensor, tau0: torch.Tensor, data: KinematicData
+                ) -> gn_mod.BorderedState:
+            h = data.h.view(-1, 1)
+            pin = torch.zeros_like(tau0)
+            pin[:, 0] = 1e12
+
+            def bound(tau):
+                return torch.clamp(tau.abs() - h, min=0.0)
+
+            def cost_fn(q, tau):
+                viol = bound(tau)
+                return self._cost_impl(q, data._replace(sd_tau=tau)) \
+                    + bound_weight * (viol * viol).sum(1)
+
+            def normal_fn(q, tau):
+                d2 = data._replace(sd_tau=tau)
+                g, H = self._normal(q, d2)
+                gtau, Bmat, Htt = self._border_terms(q, tau, d2)
+                viol = bound(tau)
+                gtau = gtau + 2.0 * bound_weight * viol * torch.sign(tau)
+                Htt = Htt + 2.0 * bound_weight * (viol > 0).to(tau.dtype) \
+                    + pin
+                return g, H, gtau, Bmat, Htt
+
+            return gn_mod.lm_solve_bordered(
+                cost_fn, normal_fn, q0, tau0,
+                gn_mod.LMConfig(max_iters=max_iters, ftol=ftol, lam0=lam0))
+
+        return run
+
     # -- annealed solve ------------------------------------------------------
     def make_solver(self,
                     stages: Tuple[Tuple[float, int], ...] = (
@@ -678,28 +804,35 @@ class KinematicFTE:
         """Graduated-non-convexity solve: anneal the redescending loss
         thresholds (scale s: wide -> 1). Returns run(q0, data) -> LMState,
         batched over the leading trial axis. ``linear_solver`` is passed
-        to ``gn.LMConfig`` (None: the default for the tensors' device)."""
+        to ``gn.LMConfig`` (None: the default for the tensors' device).
+
+        ``driver`` (JAX ``kinematic.py:826-840``): "while" runs
+        ``gn.lm_solve_annealed`` (lanes stop when converged); "scan" runs
+        every step of the schedule with no host-side test per step,
+        ``gn.lm_solve_scan`` for one stage (the heading probe) and
+        ``gn.lm_solve_annealed_scan`` for more. Any other name raises
+        ``ValueError``."""
         from . import gn as gn_mod
-        if driver not in ("while", "fixed"):
-            raise NotImplementedError(f"driver={driver!r} is not ported")
+        if driver not in ("while", "scan"):
+            raise ValueError(f"driver={driver!r}: one of 'while', 'scan'")
         stages_eff = stages if self.config.robust else \
             ((1.0, sum(it for _, it in stages)),)
 
         def run(q0: torch.Tensor, data: KinematicData) -> gn_mod.LMState:
             cost_fn = lambda q, s: self._cost_impl(q, data, s)
             normal_fn = lambda q, s: self._normal(q, data, s)
-            if driver == "fixed" and len(stages_eff) == 1:
+            config = gn_mod.LMConfig(ftol=ftol, lam0=lam0,
+                                     linear_solver=linear_solver)
+            if driver == "scan" and len(stages_eff) == 1:
                 sc, iters = stages_eff[0]
                 s_tr = _per_lane(sc, q0)
                 final, _ = gn_mod.lm_solve_scan(
                     lambda q: cost_fn(q, s_tr),
                     lambda q: normal_fn(q, s_tr), q0,
-                    gn_mod.LMConfig(max_iters=iters, ftol=ftol, lam0=lam0,
-                                    linear_solver=linear_solver))
+                    config._replace(max_iters=iters))
                 return final
-            return gn_mod.lm_solve_annealed(
-                cost_fn, normal_fn, q0, stages_eff,
-                gn_mod.LMConfig(ftol=ftol, lam0=lam0,
-                                linear_solver=linear_solver))
+            solver = gn_mod.lm_solve_annealed_scan if driver == "scan" \
+                else gn_mod.lm_solve_annealed
+            return solver(cost_fn, normal_fn, q0, stages_eff, config)
 
         return run

@@ -30,10 +30,13 @@ where the JAX package vmaps one trial. Derivatives:
   7.3 GiB at 10 trials x 64 frames on an 80 GB card (PERF.md), so the
   port has no chunking and no ``curv_chunk`` field.
 
-Not ported yet, and ``NotImplementedError`` when switched on: the
-complementarity penalty (``enable_lcp``), the 3D tracking mode
-(``use_2d_reprojections=False``) and the fixed-iteration driver
-(``driver="scan"``).
+Options: the epsilon-relaxed complementarity penalty (``enable_lcp``,
+its gradient through the eliminated GRFz and the foot heights by autograd,
+no curvature term, as in JAX), the 3D tracking mode
+(``use_2d_reprojections=False``: the caller zeroes the measurement
+weights; a weighted quadratic pull of the relative angles to the
+kinematic warm start replaces the marker-smoothing energy) and the
+fixed-length driver (``make_solver(driver="scan")``).
 """
 from __future__ import annotations
 
@@ -134,13 +137,6 @@ class KineticFTE:
     (config, subject) pair, batched over trials."""
 
     def __init__(self, config: KineticConfig, subject: SubjectParams):
-        unported = [name for name, on in (
-            ("enable_lcp", config.enable_lcp),
-            ("use_2d_reprojections=False", not config.use_2d_reprojections))
-            if on]
-        if unported:
-            raise NotImplementedError(
-                f"KineticConfig terms not ported yet: {unported}")
         self.config = config
         self.subject = subject
         self._kin = kin.KinematicFTE(kin.KinematicConfig(
@@ -396,7 +392,24 @@ class KineticFTE:
         d = tau - anchor
         anchor_cost = _t(data.tau_anchor_weight, q).view(-1) * (
             valid * d * d).sum((1, 2))
+        if cfg.enable_lcp:
+            torque_cost = torque_cost + self._lcp_cost(q, gz, data)
         return eom_cost, torque_cost + anchor_cost, (slack, tau, gz, gxy)
+
+    def _lcp_cost(self, q: torch.Tensor, gz: torch.Tensor,
+                  data: KineticData) -> torch.Tensor:
+        """Epsilon-relaxed complementarity (JAX ``kinetic.py:526-536``): a
+        loaded foot must touch the ground, GRFz * max(height, 0) <= eps,
+        as a quadratic penalty on real frames, (B,). ``gz`` (B, N, 4) is
+        the eliminated GRFz, so the gradient flows through the force and
+        through the foot kinematics."""
+        cfg = self.config
+        pts = dyn.foot_points(q, self.subject)                  # (B,N,4,3)
+        hpos = torch.clamp(pts[..., 2] - _t(data.ground_z, q).view(-1, 1, 1),
+                           min=0.0)
+        viol = torch.clamp(gz * hpos - cfg.lcp_eps, min=0.0)
+        return cfg.lcp_penalty * (data.base.frame_valid[..., None]
+                                  * viol * viol).sum((1, 2))
 
     def _smooth_cost(self, q: torch.Tensor, data: KineticData
                      ) -> torch.Tensor:
@@ -492,6 +505,31 @@ class KineticFTE:
                     Hl[b - a - 1] = Hl[b - a - 1] + c[a] * c[b] * seg
         return Hd, Hl[0], Hl[1]
 
+    def _track_tables(self, like: torch.Tensor):
+        """(A (54, 54) relative-angle map, M (54,) tracking weights) of the
+        3D tracking term."""
+        return (self.tables.get("A_rel_full", like, lambda: sk._A_REL_FULL),
+                self.tables.get("kinematic_m", like,
+                                lambda: noise_tables.KINEMATIC_M))
+
+    def _track_cost(self, q: torch.Tensor, data: KineticData
+                    ) -> torch.Tensor:
+        """Weighted 3D tracking of the kinematic warm start over the
+        relative angles (JAX ``kinetic.py:657-666``, reference
+        ``kinematic_cost``), (B,): the tracking mode's stand-in for the
+        reprojections."""
+        A, M = self._track_tables(q)
+        r = torch.einsum("ij,btj->bti", A, q - data.q_warm)
+        return (data.base.frame_valid[..., None] * M * r * r).sum((1, 2))
+
+    def _extra_cost(self, q: torch.Tensor, data: KineticData
+                    ) -> torch.Tensor:
+        """The marker-smoothing energy with 2D reprojections, the 3D
+        tracking term without (JAX ``kinetic.py:691-698``)."""
+        if self.config.use_2d_reprojections:
+            return self._smooth_cost(q, data)
+        return self._track_cost(q, data)
+
     def _weld_cost(self, q: torch.Tensor, data: KineticData,
                    loss_scale=1.0) -> torch.Tensor:
         """Quadratic pin of the joint manifold (``sk.joint_residuals``),
@@ -513,7 +551,7 @@ class KineticFTE:
         eom_cost, torque_cost, _ = self._physics_costs(q, data, loss_scale)
         pen = self._stance_penalties(q, data) \
             + self._weld_cost(q, data, loss_scale)
-        extra = self._smooth_cost(q, data)
+        extra = self._extra_cost(q, data)
         return base_cost - acc + eom_cost + torque_cost + extra + pen
 
     def objective(self, q: torch.Tensor, data: KineticData) -> torch.Tensor:
@@ -584,12 +622,12 @@ class KineticFTE:
             Hdiag = H_base.diag - H_acc.diag
             Hlower = H_base.lower - H_acc.lower
 
-        # exact gradient of the physics, smoothing and stance terms: one
-        # reverse pass
+        # exact gradient of the physics, smoothing (or tracking) and stance
+        # terms: one reverse pass
         with torch.enable_grad():
             qg = q.clone().requires_grad_(True)
             e, t, _ = self._physics_costs(qg, data, s)
-            total = (e + t) + self._smooth_cost(qg, data) \
+            total = (e + t) + self._extra_cost(qg, data) \
                 + self._stance_penalties(qg, data)
             g = g + torch.autograd.grad(total.sum(), qg)[0]
 
@@ -606,11 +644,18 @@ class KineticFTE:
         ramp = self._eom_ramp(s).view(-1, 1, 1, 1)
         Hdiag = Hdiag + ramp * ed + Hdiag_w
         Hp_d, Hp_l1 = self._penalty_curvature(q, data)
-        Hs_d, Hs_l1, Hs_l2 = self._smooth_curvature(q, data)
-        Hdiag = Hdiag + Hp_d + Hs_d
-        Hlower = torch.stack([Hlower[:, 0] + ramp * el1 + Hp_l1 + Hs_l1,
-                              Hlower[:, 1] + ramp * el2 + Hs_l2,
-                              Hlower[:, 2]], 1)
+        Hdiag = Hdiag + Hp_d
+        l1, l2 = Hlower[:, 0] + ramp * el1 + Hp_l1, Hlower[:, 1] + ramp * el2
+        if cfg.use_2d_reprojections:
+            Hs_d, Hs_l1, Hs_l2 = self._smooth_curvature(q, data)
+            Hdiag = Hdiag + Hs_d
+            l1, l2 = l1 + Hs_l1, l2 + Hs_l2
+        else:
+            # tracking: the exact curvature 2 A^T diag(M) A on real frames
+            A, M = self._track_tables(q)
+            Htrack = 2.0 * torch.einsum("ia,i,ib->ab", A, M, A)
+            Hdiag = Hdiag + fv[..., None, None] * Htrack
+        Hlower = torch.stack([l1, l2, Hlower[:, 2]], 1)
         return g, banded.BlockBanded(diag=Hdiag, lower=Hlower)
 
     # ------------------------------------------------------------------
@@ -622,9 +667,15 @@ class KineticFTE:
         data, eom_blocks=None) -> ``gn.LMState``, batched over the leading
         trial axis; the frozen EOM blocks are computed at q0 unless given.
         ``linear_solver`` is passed to ``gn.LMConfig`` (None: the default
-        for the tensors' device, the hand-written kernel on the card)."""
-        if driver != "while":
-            raise NotImplementedError(f"driver={driver!r} is not ported")
+        for the tensors' device, the hand-written kernel on the card).
+        ``driver`` (JAX ``kinetic.py:883``): "while" (``gn.lm_solve_annealed``)
+        or "scan" (``gn.lm_solve_annealed_scan``: every step of the
+        schedule, no host-side test per step); any other raises
+        ``ValueError``."""
+        if driver not in ("while", "scan"):
+            raise ValueError(f"driver={driver!r}: one of 'while', 'scan'")
+        solver = gn.lm_solve_annealed_scan if driver == "scan" \
+            else gn.lm_solve_annealed
         cfg = self.config
 
         def run(q0: torch.Tensor, data: KineticData, eom_blocks=None
@@ -648,7 +699,7 @@ class KineticFTE:
                 # q0.shape[1]: the padded frame count of one trial
                 guard_cap = cfg.meas_guard * guard_fn(q0) \
                     + 10.0 * q0.shape[1]
-            return gn.lm_solve_annealed(
+            return solver(
                 lambda qq, s: self._cost(qq, data, s),
                 lambda qq, s: self._normal(qq, data, s, eom_blocks=blocks),
                 q0, stages,

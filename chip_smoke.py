@@ -182,16 +182,31 @@ Phases (any failure exits nonzero):
    ``grid_search.pickle`` with the JAX package's columns or keys and row
    counts, every value finite, ``n``
    = 2 in every study row; the AR statistics within 1e-6 of JAX's with
-   equal non-zero counts; each component count's GMM, fitted again from
-   the JAX package's k-means++ draw, within 0.5 nats per sample of JAX's
-   likelihoods (the studies' own fits, from the port's draw, printed
-   beside); the kernel against its plain version on the grid's first
+   equal non-zero counts; the studies' own GMM likelihoods per component
+   count within 0.5 nats per sample of JAX's (the port's k-means++ draw is
+   JAX's); the kernel against its plain version on the grid's first
    finite 48-lane systems (rel error <= 7e-4); the sweep's mean MPJPE per rate and column within
    2 % of JAX float64's, a rate where JAX float32 misses its own float64
    by more than that printed, not gated (``sweep_gate``), against
    ``tests/data/jax_studies_f64.json``. The studies' monocular rows are
    printed beside the JAX float64 and float32 runs' on the same trials
    where that file recorded them.
+15. options — the estimator's solver options (``phase_options``) against
+   the JAX float64 runs of ``tests/data/jax_options_f64.json``: on one
+   4-camera, 64-frame gallop whose camera 2 is 0.4 frame periods late, the
+   joint shutter-delay solve (``estimate_kinematics`` with
+   ``shutter_delay_estimation``: the kernel on 5x64 systems, 1 + 4
+   right-hand sides; camera 2's relative delay within 0.05 h of the
+   injected one, every delay within 0.01 h of JAX float32's, MPJPE within
+   2 % of JAX float64's),
+   then ``estimate_kinetics`` with ``enable_lcp`` (``check_lcp`` ok, or
+   its largest violation within 10 % of the JAX run's, which fails the
+   check itself) and with ``use_2d_reprojections=False`` (each MPJPE
+   within 2 %, CoM-velocity within 5 % of JAX's); the stage-1 batch with
+   the fixed-length and the while drivers (equal step counts, mean MPJPE
+   within 0.1 %, each driver's ms and host syncs per step printed); the
+   serial path's first trial in the data-driven mode with
+   ``motion_prior_rolling`` 1 and 0 (finite; printed beside JAX's).
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -218,6 +233,7 @@ TOL_MPJPE = 0.02      # mean MPJPE agreement, relative
 TOL_GMM_NATS = 0.5    # port vs JAX GMM, mean log-likelihood per sample
 TOL_AR = 1e-6         # port vs JAX AR predictions on the training windows
 TOL_COMVEL = 0.05     # stage-2 mean CoM-velocity agreement, relative
+TOL_LCP = 0.10        # phase 15: largest complementarity violation vs JAX
 SHAPES = ((10, 64), (30, 64), (70, 64), (1, 256))
 # the dataset CLI's kernel shapes: the batched path's two subject groups
 # (jules 6, phantom 4 trials; probes x3, line-scans x7, padded to 64
@@ -246,6 +262,13 @@ ANALYSIS_SHAPES = ((36, 64), (24, 64), (108, 64), (72, 64), (252, 64),
 # and solves are CLI_SHAPES' 12x64 and 4x64); and the grid at the CLI's
 # full depth (10 trials: jules 6 and phantom 4, 24 configurations each)
 STUDY_SHAPES = ((48, 48), (6, 48), (2, 48), (144, 64), (96, 64))
+# phase 15 (options): one 4-camera trial of 64 frames with a shutter delay
+# on camera 2; the joint (q, tau) solve hands the kernel 1 + 4 lanes per
+# system
+OPTIONS_PATH = os.path.join("2019_03_07", "phantom", "run")
+OPTIONS_FRAMES = 64
+OPTIONS_TAU_H = 0.4
+OPTIONS_SHAPES = ((5, 64), (1, 64))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -478,7 +501,9 @@ def phase_kernel(dev, results):
 def kernel_cli_shapes(dev):
     """The kernel at the dataset CLI's shapes (``CLI_SHAPES``,
     ``SERIAL_SHAPES``, ``KINETIC_SHAPES``, ``ACINOSET_SHAPES``,
-    ``ANALYSIS_SHAPES``, ``STUDY_SHAPES``) on random SPD systems: its
+    ``ANALYSIS_SHAPES``, ``STUDY_SHAPES``) and the options'
+    (``OPTIONS_SHAPES``: the joint shutter solve's 5x64, the single
+    solves' 1x64) on random SPD systems: its
     error against the plain
     version in float64 (<= 7e-4), its time (CUDA events, 20 launches after
     3 warm-ups) beside the plain float32 version's, the one-call library
@@ -491,7 +516,8 @@ def kernel_cli_shapes(dev):
                          ("kinetic CLI", KINETIC_SHAPES),
                          ("acinoset CLI", ACINOSET_SHAPES),
                          ("analysis CLI", ANALYSIS_SHAPES),
-                         ("studies", STUDY_SHAPES)):
+                         ("studies", STUDY_SHAPES),
+                         ("options", OPTIONS_SHAPES)):
         for B, N in shapes:
             d32, l32, r32 = cuda_banded.random_systems(B, N, B * 1000 + N,
                                                        dev)
@@ -606,7 +632,7 @@ def probe_finish_split(fte, q0b, batched):
         return run
 
     pbatch.make_multistart_probe(
-        timed(fte.make_solver(stages=pbatch.PROBE_STAGES, driver="fixed"),
+        timed(fte.make_solver(stages=pbatch.PROBE_STAGES, driver="scan"),
               "probe_s"),
         timed(fte.make_solver(stages=pbatch.FULL_STAGES), "finish_s"))(
             q0b, batched)
@@ -1073,12 +1099,14 @@ def phase_physics(dev, ctx, q_dd, gmm_prior, dd_out, results):
 
 @contextlib.contextmanager
 def plain_solves_counted():
-    """Count the calls of the plain banded solvers (scan, CR) made inside
-    the block, into the yielded dict: none may run on the card's path."""
+    """Count the calls of the plain banded solvers (scan, CR, and the
+    banded Cholesky of the bordered solve's CPU path) made inside the
+    block, into the yielded dict: none may run on the card's path."""
     from cheetah_pose_estimation_tpu_torch.ops import banded
 
-    plain = {"scan": 0, "cr": 0}
-    saved = banded.solve, banded.cr_solve
+    names = ("solve", "cr_solve", "cholesky")
+    plain = {"scan": 0, "cr": 0, "cholesky": 0}
+    saved = [getattr(banded, n) for n in names]
 
     def counted(name, fn):
         def run(*a, **k):
@@ -1086,12 +1114,13 @@ def plain_solves_counted():
             return fn(*a, **k)
         return run
 
-    banded.solve, banded.cr_solve = counted("scan", saved[0]), \
-        counted("cr", saved[1])
+    for n, key, fn in zip(names, plain, saved):
+        setattr(banded, n, counted(key, fn))
     try:
         yield plain
     finally:
-        banded.solve, banded.cr_solve = saved
+        for n, fn in zip(names, saved):
+            setattr(banded, n, fn)
 
 
 # -- phase 9: the dataset CLI ------------------------------------------------
@@ -2784,7 +2813,7 @@ def phase_analysis(dev, results, ref, root):
     # torch.profiler, against three unprofiled runs of it (the CLI run
     # warmed the solver's shapes up)
     window = fte.make_solver(stages=((1.0, LINESCAN_PROFILE_STEPS),),
-                             driver="fixed")
+                             driver="scan")
     window(qks, rep)
     walls = []
     for _ in range(3):
@@ -2913,21 +2942,12 @@ def first_systems(B):
         cuda_banded.solve = orig
 
 
-def gmm_same_draw(dev, dset, jm, sel, grid_rows):
-    """The GMM likelihoods of the studies against JAX's (``jm``:
-    ``ref["models"]``). Each component count's EM is run again on the card
-    from the JAX package's k-means++ draw (``jm["kmeanspp"]``: a torch
-    generator cannot draw as ``jax.random`` does) and scored on the
-    training and validation tables: the gated difference. The studies' own
-    fits (the port's draw, which may end in another local optimum of EM)
-    are printed beside JAX's. Returns the largest gated difference and the
-    per-count values."""
-    from cheetah_pose_estimation_tpu_torch.priors import dataset as prior_ds
-    from cheetah_pose_estimation_tpu_torch.priors import gmm as gmm_mod
-
-    X = prior_ds.load_pose_dataset(dset).data[:, 6:28]
-    Xv = prior_ds.load_pose_dataset(os.path.join(
-        os.path.dirname(dset), "validation_dataset.csv")).data[:, 6:28]
+def gmm_vs_jax(jm, sel, grid_rows):
+    """The studies' own GMM likelihoods on the training and validation
+    tables (the port's fits with seed 42, whose k-means++ draw is JAX's:
+    ``priors/gmm.kmeanspp_indices``) against JAX's (``jm``:
+    ``ref["models"]``), per component count. Returns the largest
+    difference in nats per sample and the per-count values."""
     own = {k + 1: (sel["gmm_train_likelihood"][k],
                    sel["gmm_validation_likelihood"][k])
            for k in range(len(sel["gmm_train_likelihood"]))}
@@ -2935,23 +2955,18 @@ def gmm_same_draw(dev, dset, jm, sel, grid_rows):
                                     r["gmm_validation_likelihood"])
                 for r in grid_rows})
     per, worst = {}, 0.0
-    for k, means0 in sorted(jm["kmeanspp"].items(), key=lambda x: int(x[0])):
-        k = int(k)
+    for k in sorted(own):
         jg = jm["grid"].get(f"gmm_{k}")
         jax_tv = ((jg["gmm_train_likelihood"], jg["gmm_validation_likelihood"])
                   if jg else (jm["selection"]["gmm_train_likelihood"][k - 1],
                               jm["selection"]["gmm_validation_likelihood"][
                                   k - 1]))
-        p = gmm_mod._fit(X, k, 42, 200, 1e-6, means0=np.asarray(means0),
-                         device=dev)
-        same = (gmm_mod.score(p, X), gmm_mod.score(p, Xv))
-        worst = max([worst] + [abs(a - b) for a, b in zip(same, jax_tv)])
-        per[k] = {"jax": jax_tv, "same_draw": same, "own_draw": own.get(k)}
+        worst = max([worst] + [abs(a - b) for a, b in zip(own[k], jax_tv)])
+        per[k] = {"jax": jax_tv, "port": own[k]}
         log(f"# studies: GMM K={k} train/validation likelihood jax "
-            f"{jax_tv[0]:.4f}/{jax_tv[1]:.4f}, port from JAX's draw "
-            f"{same[0]:.4f}/{same[1]:.4f}, port's own draw (the studies') "
-            + ("{:.4f}/{:.4f}".format(*own[k]) if k in own else "-"))
-    return {"same_draw_max_nats": worst, "per_k": per}
+            f"{jax_tv[0]:.4f}/{jax_tv[1]:.4f}, port "
+            f"{own[k][0]:.4f}/{own[k][1]:.4f}")
+    return {"max_nats": worst, "per_k": per}
 
 
 def study_rows_vs_jax(name, rows, ref, key):
@@ -2983,9 +2998,9 @@ def phase_studies(dev, results, ref, root, dset, odir):
     and row counts (``STUDY_CSVS``; the pickle's keys and lengths from
     ``tests/data/jax_studies_f64.json``); every value
     finite and every study row's ``n`` = 2; the AR statistics within 1e-6
-    relative of JAX's with equal non-zero counts, the GMM likelihoods
-    of the EM run from JAX's k-means++ draw within 0.5 nats per sample
-    (``gmm_same_draw``; the studies' own draw printed beside); the kernel
+    relative of JAX's with equal non-zero counts, the studies' own GMM
+    likelihoods within 0.5 nats per sample of JAX's (``gmm_vs_jax``: the
+    port draws its k-means++ means as ``jax.random`` does); the kernel
     against its plain version in float64 on the grid's first finite
     48-lane normal systems (rel error <= 7e-4);
     each sweep column's mean MPJPE per rate within 2 % of the JAX float64
@@ -3096,14 +3111,12 @@ def phase_studies(dev, results, ref, root, dset, odir):
         for k in ("lr_train_rmse", "lr_validation_rmse"):
             ar_err = max(ar_err, abs(r[k] - ja[k]) / abs(ja[k]))
         nz_same &= int(r["lr_non_zeros"]) == int(ja["lr_non_zeros"])
-    gmm = gmm_same_draw(dev, dset, ref["models"], sel, grid_rows)
+    gmm = gmm_vs_jax(ref["models"], sel, grid_rows)
     log(f"# studies: model statistics vs JAX: AR RMSE largest rel err "
         f"{ar_err:.2e} (bar {TOL_AR}), non-zero counts equal {nz_same}; "
-        f"GMM likelihoods from JAX's k-means++ draw, largest |diff| "
-        f"{gmm['same_draw_max_nats']:.2e} nats per sample (bar "
-        f"{TOL_GMM_NATS})")
-    if ar_err > TOL_AR or not nz_same or \
-            gmm["same_draw_max_nats"] > TOL_GMM_NATS:
+        f"the studies' GMM likelihoods, largest |diff| "
+        f"{gmm['max_nats']:.2e} nats per sample (bar {TOL_GMM_NATS})")
+    if ar_err > TOL_AR or not nz_same or gmm["max_nats"] > TOL_GMM_NATS:
         bad.append(("model statistics", ar_err, nz_same, gmm))
     out["model_stats"] = {"ar_max_rel_err": ar_err, "non_zeros_equal":
                           nz_same, "gmm": gmm}
@@ -3144,6 +3157,309 @@ def phase_studies(dev, results, ref, root, dset, odir):
     if bad:
         raise AssertionError(f"the studies failed their checks: {bad[:6]}")
     return by_shape, kern["rel_err"], kern["max_abs_err"]
+
+
+def render_options_trial(root):
+    """Phase 15's trial under ``root`` (``OPTIONS_PATH``): a procedural
+    gallop of ``OPTIONS_FRAMES`` frames at 120 fps, subject phantom, seen
+    by ``ring_cameras(n_cams=4, seed=3)`` with 1 px noise and no outliers
+    or drops, camera 2's detections moved along their image velocity by
+    ``OPTIONS_TAU_H`` frame periods (a shutter delay), the ground plane at
+    the truth's lowest foot. Host work in float64 (the port's synthetic
+    module). Returns the truth: positions (N, 24, 3), CoM velocity (N-1,
+    3), the injected delay and h."""
+    from cheetah_pose_estimation_tpu_torch.data import synthetic as syn
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.models import skeleton as sk
+    from cheetah_pose_estimation_tpu_torch.pipeline import contacts
+
+    subject = params.get_subject("phantom")
+    q_gt = syn.gallop_trajectory(OPTIONS_FRAMES)
+    markers = syn.fk_markers_np(q_gt, subject)
+    scene = syn.ring_cameras(markers.mean(axis=(0, 1)), n_cams=4, seed=3)
+    trial = syn.synthesize(q_gt, subject, scene, noise_px=1.0,
+                           outlier_frac=0.0, drop_frac=0.0, seed=3,
+                           subject_name="phantom")
+    h = 1.0 / scene.fps
+    true_tau = OPTIONS_TAU_H * h
+    meas = np.array(trial.meas)
+    vel_px = np.zeros_like(meas[..., 0])
+    vel_px[1:] = (meas[1:, ..., 0] - meas[:-1, ..., 0]) / h
+    meas[:, 2, :, :, 0] += true_tau * vel_px[:, 2]
+    syn.write_trial_dir(trial._replace(meas=meas), root, OPTIONS_PATH,
+                        ground_plane_height=contacts.estimate_ground_height(
+                            q_gt, subject))
+    com = sk.com_position(torch.as_tensor(q_gt), subject).numpy()
+    return {"positions": markers, "com_vel": (com[1:] - com[:-1]) * scene.fps,
+            "true_tau": true_tau, "h": h}
+
+
+def options_scores(q, truth, subject_name="phantom"):
+    """A solved trajectory q (N, 54) against ``render_options_trial``'s
+    truth: MPJPE (frame-centred) and MPE in mm, CoM-velocity RMSE in m/s
+    (the port's skeleton in float64 on the CPU)."""
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.models import skeleton as sk
+
+    subject = params.get_subject(subject_name)
+    qt = torch.as_tensor(np.array(q, np.float64))
+    pos = sk.fk_markers(qt, subject).numpy()
+    true = truth["positions"]
+    err = (pos - pos.mean(1, keepdims=True)) - (true - true.mean(1,
+                                                                keepdims=True))
+    com = sk.com_position(qt, subject).numpy()
+    dv = (com[1:] - com[:-1]) / truth["h"] - truth["com_vel"]
+    return {"mpjpe": float(np.linalg.norm(err, axis=2).mean() * 1e3),
+            "mpe": float(np.linalg.norm(pos - true, axis=2).mean() * 1e3),
+            "com_vel_rmse": float(np.sqrt(np.mean(dv ** 2)))}
+
+
+def lcp_summary(q, grf_z, ground_z, subject_name="phantom"):
+    """``results.check_lcp`` on a solution: the GRFz (N, 4) against the
+    feet's heights above the plane (the port's dynamics in float64 on the
+    CPU), with the number of loaded foot-frames."""
+    from cheetah_pose_estimation_tpu_torch.dynamics import eom
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.pipeline import results as res
+
+    feet = eom.foot_points(torch.as_tensor(np.array(q, np.float64)),
+                           params.get_subject(subject_name)).numpy()
+    out = res.check_lcp(np.asarray(grf_z), feet[..., 2] - ground_z)
+    out["loaded_foot_frames"] = int((np.asarray(grf_z) > 1e-6).sum())
+    return out
+
+
+def count_syncs(fn):
+    """Run ``fn`` with the CUDA sync debug mode on "warn" and count the
+    synchronizing calls it warned of. Returns (fn's result, count)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message).lower() for w in seen)
+
+
+def within(a, b, tol):
+    """|a - b| <= tol |b|."""
+    return abs(a - b) <= tol * abs(b)
+
+
+def phase_options(dev, results, ref, cli_root, dset):
+    """The estimator's solver options on one 4-camera trial
+    (``render_options_trial``: 64 frames, camera 2 late by 0.4 frame
+    periods) and on the stage-1 batch, against the JAX float64 runs of
+    ``tests/data/jax_options_f64.json``:
+
+    * ``init_trajectory(..., shutter_delay_estimation=True)`` and
+      ``estimate_kinematics``: the live-shutter solve, then the joint
+      (q, tau) solve (the kernel on 1 + 4 lanes per system). Gates: camera
+      2's delay relative to cameras 1 and 3 within 0.05 h of the injected
+      one (the JAX package's own test's bar); each tau within 0.01 h of the
+      JAX float32 run's (JAX float32 misses its own float64 by ~0.13 h:
+      the distance to float64 and the JAX test's |tau_1|, |tau_3| < 0.15 h
+      are printed); MPJPE against the truth within 2 % of JAX float64's;
+    * ``determine_contacts``, then ``estimate_kinetics(enable_lcp=True)``
+      and ``estimate_kinetics(use_2d_reprojections=False)`` on the same
+      trial: with the penalty on, ``check_lcp`` ok or its largest
+      violation within ``TOL_LCP`` of the JAX run's (whose own check fails
+      on this trial); each MPJPE within 2 % and CoM-velocity RMSE within
+      5 % of JAX's;
+    * the stage-1 batch (10 x 64) with ``driver="scan"`` and "while", the
+      JAX test's schedule ((3, 8), (1, 20)) and ftol = 0: equal step
+      counts per lane (28), mean MPJPE within 0.1 %; max |dq|, ms per step
+      and host syncs per step (``count_syncs``) of each driver printed;
+    * the serial path's first monocular trial of phase 9's tree in the
+      data-driven mode with ``motion_prior_rolling`` 1 and 0: finite;
+      MPJPE and MPE printed beside JAX float64's (not gated: monocular
+      float32 does not reproduce itself).
+
+    The kernel's launches per shape over the phase (no plain solve may
+    run). Returns the launches by shape."""
+    import pickle
+    import tempfile
+
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.pipeline import estimator as est
+    from cheetah_pose_estimation_tpu_torch.pipeline import metrics
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+
+    out, bad = {}, []
+    work = tempfile.mkdtemp(prefix="options_")
+    root, odir = os.path.join(work, "tree"), os.path.join(work, "out")
+    truth = render_options_trial(root)
+    h = truth["h"]
+    t_phase = time.perf_counter()
+    cuda_banded.reset_launches()
+    with plain_solves_counted() as plain:
+        # 1. the joint shutter-delay solve
+        t0 = time.perf_counter()
+        e = est.init_trajectory(root, OPTIONS_PATH, "phantom",
+                                kinematic_model=True,
+                                shutter_delay_estimation=True)
+        ok = est.estimate_kinematics(e, out_dir_prefix=odir, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        shutter_shapes = dict(cuda_banded.launches_by_shape)
+        tau, jk = [float(t) for t in e.shutter_delay], ref["kinematic"]
+        jk32 = ref["kinematic_f32"]
+        rel = tau[2] - 0.5 * (tau[1] + tau[3])
+        sc = options_scores(e.q, truth)
+        out["shutter"] = {"ok": ok, "tau": tau, "tau_rel": rel,
+                          "wall_s": wall, "launches": shape_keys(
+                              shutter_shapes), **sc}
+        log(f"# options: shutter solve {wall:.2f} s, launches "
+            f"{shape_keys(shutter_shapes)}; tau/h "
+            f"{np.round(np.array(tau) / h, 4).tolist()} (JAX f64 "
+            f"{np.round(np.array(jk['tau']) / h, 4).tolist()}, JAX f32 "
+            f"{np.round(np.array(jk32['tau']) / h, 4).tolist()}), "
+            f"relative delay {rel / h:.4f} h (injected {OPTIONS_TAU_H} h); "
+            f"MPJPE {sc['mpjpe']:.3f} mm (JAX f64 {jk['mpjpe']:.3f}), MPE "
+            f"{sc['mpe']:.3f}, CoM-vel {sc['com_vel_rmse']:.4f} m/s, "
+            f"objective {e.obj_cost:.6g} (JAX {jk['obj_cost']:.6g})")
+        e.solution_details()
+        err = {r: max(abs(a - b) for a, b in zip(tau, ref_tau)) / h
+               for r, ref_tau in (("f64", jk["tau"]), ("f32", jk32["tau"]))}
+        side = lambda t: max(abs(t[1]), abs(t[3])) / h
+        out["shutter"].update(tau_err_h=err, abs_tau_13_h=side(tau))
+        log(f"# options: shutter: largest |tau - JAX| {err['f64']:.4f} h "
+            f"from float64, {err['f32']:.4f} h from float32 (bar 0.01 h); "
+            f"largest |tau_1|, |tau_3| {side(tau):.4f} h (the JAX test's bar "
+            f"0.15 h: JAX f64 {side(jk['tau']):.4f}, JAX f32 "
+            f"{side(jk32['tau']):.4f}; printed only)")
+        # JAX float32 misses its own float64 delays by ~0.13 h along the
+        # weakly observed common shift of cameras 1-3 against camera 0: the
+        # delays are held to the JAX float32 run of the same problem
+        if not (ok and abs(rel - truth["true_tau"]) < 0.05 * h
+                and err["f32"] <= 0.01 and tau[0] == 0.0
+                and within(sc["mpjpe"], jk["mpjpe"], TOL_MPJPE)
+                and shutter_shapes.get((5, 64), 0) > 0):
+            bad.append(("shutter", out["shutter"]))
+        # 2. the physics stage with each option
+        est.determine_contacts(e, out_dir_prefix=odir)
+        for name, kw in (("lcp", dict(enable_lcp=True)),
+                         ("track", dict(use_2d_reprojections=False))):
+            t0 = time.perf_counter()
+            ok = est.estimate_kinetics(e, out_dir_prefix=odir, save=False,
+                                       device=dev, **kw)
+            torch.cuda.synchronize()
+            sc = options_scores(e.q, truth)
+            lcp = lcp_summary(e.q, e.grf_z, e.params.ground_plane_height)
+            jr = ref[name]
+            out[name] = {"ok": ok, "wall_s": time.perf_counter() - t0,
+                         "check_lcp": lcp, **sc}
+            log(f"# options: kinetics {name} {out[name]['wall_s']:.2f} s: "
+                f"MPJPE {sc['mpjpe']:.3f} mm (JAX f64 {jr['mpjpe']:.3f}), "
+                f"CoM-vel {sc['com_vel_rmse']:.4f} m/s (JAX "
+                f"{jr['com_vel_rmse']:.4f}), MPE {sc['mpe']:.3f}, "
+                f"check_lcp {lcp} (JAX {jr['check_lcp']}), objective "
+                f"{e.obj_cost:.6g} (JAX {jr['obj_cost']:.6g})")
+            # the JAX float64 run's own check_lcp fails on this trial (its
+            # largest violation, 0.14, is over the check's 0.01): the port's
+            # passes, or its largest violation is within TOL_LCP of JAX's
+            lcp_ok = lcp["ok"] or lcp["max_violation"] <= (
+                1.0 + TOL_LCP) * jr["check_lcp"]["max_violation"]
+            if not (ok and within(sc["mpjpe"], jr["mpjpe"], TOL_MPJPE)
+                    and within(sc["com_vel_rmse"], jr["com_vel_rmse"],
+                               TOL_COMVEL)
+                    and (name != "lcp" or lcp_ok)):
+                bad.append((name, out[name]))
+        # 3. the drivers on the stage-1 batch
+        batched, q0, trials, subject = bench_lib.build_batch(
+            max_trials=10, n_frames=64, device=dev)
+        fpss = [f for _, _, f in bench_lib.load_reference_trajectories(10)]
+        fte = kin.KinematicFTE(kin.KinematicConfig(), subject)
+        drivers = {}
+        for driver in ("scan", "while"):
+            run = fte.make_solver(stages=((3.0, 8), (1.0, 20)), ftol=0.0,
+                                  driver=driver)
+            t0 = time.perf_counter()
+            st = run(q0, batched)
+            torch.cuda.synchronize()
+            steps = int(st.it.max())
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+            # a second run, its tables on the card already: the syncs the
+            # loop itself makes
+            _, syncs = count_syncs(lambda: run(q0, batched))
+            err = [r[1] for r in bench_lib.score_per_trial(
+                st.q.double().cpu().numpy(), trials, fpss, subject)]
+            drivers[driver] = {"it": st.it.tolist(), "ms_per_step": ms,
+                               "syncs_per_step": syncs / steps,
+                               "mpjpe": float(np.mean(err)), "q": st.q}
+            log(f"# options: driver {driver}: steps {st.it.tolist()}, "
+                f"{ms:.3f} ms per step, {syncs} host syncs "
+                f"({syncs / steps:.2f} per step), mean MPJPE "
+                f"{np.mean(err):.4f} mm")
+        dq = float((drivers["scan"].pop("q") - drivers["while"].pop("q"))
+                   .abs().max())
+        out["drivers"] = dict(drivers, max_abs_dq=dq)
+        log(f"# options: drivers max |dq| {dq:.3e}")
+        if not (drivers["scan"]["it"] == drivers["while"]["it"]
+                == [28] * len(drivers["scan"]["it"])
+                and within(drivers["scan"]["mpjpe"], drivers["while"]["mpjpe"],
+                           1e-3)):
+            bad.append(("drivers", out["drivers"]))
+        # 4. the rolling AR refinement on the serial path's first trial
+        cheetah, date, name = run_dataset.TEST_SET[0]
+        path = os.path.join(date, cheetah, name)
+        with open(os.path.join(cli_root, path, "synthetic_gt.pickle"),
+                  "rb") as f:
+            true = pickle.load(f)["positions"]
+        jr = ref["rolling"]
+        for r in (1, 0):
+            t0 = time.perf_counter()
+            e = est.init_trajectory(cli_root, path, cheetah,
+                                    monocular_enable=True,
+                                    kinematic_model=True)
+            ok = est.estimate_kinematics(
+                e, monocular_constraints=True, data_driven_dataset=dset,
+                motion_prior_rolling=r, save=False, device=dev)
+            torch.cuda.synchronize()
+            pos = options_positions(e.q, cheetah)
+            mj = metrics.traj_error(true, pos, centered=True)[0].mean()
+            me = metrics.traj_error(true, pos)[0].mean()
+            out[f"rolling_{r}"] = {"ok": ok, "mpjpe": float(mj),
+                                   "mpe": float(me),
+                                   "wall_s": time.perf_counter() - t0}
+            jj = jr[f"rolling_{r}"]
+            log(f"# options: data-driven {path} motion_prior_rolling={r} "
+                f"{out[f'rolling_{r}']['wall_s']:.2f} s: MPJPE {mj:.3f} mm "
+                f"(JAX f64 {jj['mpjpe']:.3f}), MPE {me:.3f} mm (JAX f64 "
+                f"{jj['mpe']:.3f})")
+            if not (ok and np.isfinite(e.q).all()):
+                bad.append((f"rolling_{r}", out[f"rolling_{r}"]))
+    by_shape = dict(cuda_banded.launches_by_shape)
+    out.update(plain_solves=plain, launches=shape_keys(by_shape),
+               wall_s=time.perf_counter() - t_phase)
+    log(f"# options: phase {out['wall_s']:.2f} s, kernel launches "
+        f"{shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        bad.append(("plain solves on the card", plain))
+    untimed = sorted(set(by_shape) - set(
+        OPTIONS_SHAPES + SHAPES + SERIAL_SHAPES))
+    if untimed:
+        bad.append(("shapes not timed in phase 3", untimed))
+    results["options"] = out
+    if bad:
+        raise AssertionError(f"options: {bad}")
+    return by_shape
+
+
+def options_positions(q, subject_name):
+    """Marker positions (N, 24, 3) of a solved trajectory q (N, 54), in
+    float64 on the CPU."""
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.models import skeleton as sk
+
+    return sk.fk_markers(torch.as_tensor(np.array(q, np.float64)),
+                         params.get_subject(subject_name)).numpy()
 
 
 def main():
@@ -3212,6 +3528,10 @@ def main():
         studies_ref = json.load(f)
     studies_shapes, st_rel, st_abs = phase_studies(
         dev, results, studies_ref, root, dset, cli_out)
+    with open(os.path.join(HERE, "tests", "data", "jax_options_f64.json"),
+              encoding="utf-8") as f:
+        options_ref = json.load(f)
+    options_shapes = phase_options(dev, results, options_ref, root, dset)
     worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel, an_rel, st_rel)
     worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs, an_abs, st_abs)
 
@@ -3227,7 +3547,7 @@ def main():
         + sum(physics_shapes.values()) + sum(cli_shapes.values())
         + sum(serial_shapes.values()) + sum(kinetic_shapes.values())
         + sum(acinoset_shapes.values()) + sum(analysis_shapes.values())
-        + sum(studies_shapes.values()),
+        + sum(studies_shapes.values()) + sum(options_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
                              "physics": shape_keys(physics_shapes),
@@ -3236,7 +3556,8 @@ def main():
                              "kinetic_cli": shape_keys(kinetic_shapes),
                              "acinoset": shape_keys(acinoset_shapes),
                              "analysis": shape_keys(analysis_shapes),
-                             "studies": shape_keys(studies_shapes)},
+                             "studies": shape_keys(studies_shapes),
+                             "options": shape_keys(options_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

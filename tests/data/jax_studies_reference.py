@@ -12,8 +12,7 @@ merges their records):
   and per (components, window, lasso) of the grid search's default grid
   the statistics its rows carry (GMM train and validation mean
   log-likelihood per sample, AR non-zero count, train and validation
-  RMSE), and each component count's k-means++ draw (the EM's starting
-  means, ``kmeanspp``);
+  RMSE);
 * ``sweep_f64`` and ``sweep_f32``: ``run_degradation_sweep(rates=(0.0,
   8.0), max_trials=4, include_physics=True)``, in float64 (x64 on and the
   sweep's float32 arrays made float64) and in float32 as it runs; the rows
@@ -58,7 +57,6 @@ import sys
 import tempfile
 import time
 
-import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
@@ -159,13 +157,6 @@ def models_run(work, small):
                     "lr_non_zeros": int(mm.model_non_zeros),
                     "lr_train_rmse": float(mm.train_rmse),
                     "lr_validation_rmse": float(mm.validation_rmse)}
-        # the EM's starting means: the k-means++ draw of gmm._fit (seed
-        # 42) for every component count of the selection and the grid
-        ks = sorted(set(kw.get("pose_components", range(1, 8)))
-                    | set(GRID["pose_components"]))
-        rec["kmeanspp"] = {str(k): np.asarray(gmm._kmeanspp_init(
-            jax.random.PRNGKey(42), jax.numpy.asarray(X), k)).tolist()
-            for k in ks}
     rec["grid"] = {k: {kk: float(vv) for kk, vv in v.items()}
                    for k, v in grid.items()}
     rec["wall_s_cpu"] = time.time() - t0

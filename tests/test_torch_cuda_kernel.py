@@ -16,7 +16,12 @@ The force-plate pipeline's shape, 1x50, is held on a random system and on
 a torque-anchored kinetic normal system (the GRF re-estimation's, damped at
 lam = 1e-2 and scaled as ``gn.scaled_system`` does). The every-camera
 sweep's line-scan shape, 252x64, runs in two waves of CTAs: a NaN lane of
-the second wave stays in its lane.
+the second wave stays in its lane. The joint shutter-delay solve's 5x64
+(one 4-camera trial's 1 + 4 right-hand sides) and 1x64 are held on
+random systems, and the bordered solve (``gn._bordered_solve``), which
+sends each system's 1 + C columns to the kernel as lanes, against its
+float64 CPU form (a dense check of the Schur step is in
+``tests/test_torch_shutter.py``).
 """
 import pytest
 import torch
@@ -32,7 +37,8 @@ def _cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N", [(10, 64), (30, 64), (70, 64), (1, 256),
-                                 (1, 50), (3, 5), (2, 1), (4, 7)])
+                                 (1, 50), (5, 64), (1, 64), (3, 5), (2, 1),
+                                 (4, 7)])
 def test_kernel_matches_plain(B, N):
     dev = _cuda()
     diag, lower, rhs = cb.random_systems(B, N, B * 1000 + N, dev)
@@ -160,3 +166,40 @@ def test_kernel_on_torque_anchored_kinetic_system_1x50():
     ref = cb.solve_reference(diag.double(), lower.double(), rhs.double())
     assert torch.isfinite(x).all() and torch.isfinite(ref).all()
     assert float((x.double() - ref).abs().max() / ref.abs().max()) < 7e-4
+
+
+@pytest.mark.gpu
+def test_bordered_solve_on_the_card_5x64():
+    """B = 1 system of 64 frames with C = 4 border columns: the kernel
+    launched once at 5x64, dq and dtau within 7e-4 of the float64 scan
+    form on the CPU."""
+    import numpy as np
+
+    from cheetah_pose_estimation_tpu_torch.ops import banded
+    from cheetah_pose_estimation_tpu_torch.solver import gn
+
+    dev = _cuda()
+    diag, lower, rhs = cb.random_systems(1, 64, 7, "cpu")
+    rng = np.random.default_rng(7)
+    Bmat = torch.as_tensor(0.1 * rng.normal(size=(1, 64, 54, 4)),
+                           dtype=torch.float32)
+    Htt = torch.as_tensor(rng.uniform(50.0, 100.0, size=(1, 4)),
+                          dtype=torch.float32)
+    Htt[:, 0] += 1e12
+    gtau = torch.as_tensor(rng.normal(size=(1, 4)), dtype=torch.float32)
+    lam = torch.full((1,), 1e-2)
+
+    def solve(g, d, l, gt, Bm, Ht, lm):
+        return gn._bordered_solve(g, banded.BlockBanded(d, l), gt, Bm, Ht,
+                                  lm, 1e-8)
+
+    inputs = (rhs, diag, lower, gtau, Bmat, Htt, lam)
+    before = cb.launches_by_shape.get((5, 64), 0)
+    dq, dtau = solve(*[a.to(dev) for a in inputs])
+    torch.cuda.synchronize()
+    assert cb.launches_by_shape[5, 64] == before + 1
+    rq, rt = solve(*[a.double() for a in inputs])
+    assert float((dq.cpu().double() - rq).abs().max()
+                 / rq.abs().max()) < 7e-4
+    assert float((dtau.cpu().double() - rt)[:, 1:].abs().max()
+                 / rt[:, 1:].abs().max()) < 7e-4

@@ -141,10 +141,12 @@ def test_prior_gradient_matches_autograd(prior_problem):
 
 
 def test_unported_terms_still_raise():
-    for kw in (dict(live_shutter=True), dict(loss="cauchy")):
-        with pytest.raises(NotImplementedError):
-            tkin.KinematicFTE(tkin.KinematicConfig(**kw), SUBJECT)
-    # the ground terms are ported (tests/test_torch_ground.py)
+    """Only a loss the JAX package lacks raises; the live shutter coupling
+    (tests/test_torch_shutter.py) and the ground terms
+    (tests/test_torch_ground.py) are ported."""
+    with pytest.raises(NotImplementedError):
+        tkin.KinematicFTE(tkin.KinematicConfig(loss="cauchy"), SUBJECT)
+    tkin.KinematicFTE(tkin.KinematicConfig(live_shutter=True), SUBJECT)
     tkin.KinematicFTE(tkin.KinematicConfig(ground_weight=1.0), SUBJECT)
 
 

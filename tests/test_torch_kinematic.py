@@ -141,7 +141,7 @@ def test_short_multistart_matches_jax(ftes):
     bt, qt = convert.kinematic_problem(bj, qj, batched=True,
                                       device="cpu")
     trun = tbatch.make_multistart_probe(
-        tf.make_solver(stages=((10.0, 3),), driver="fixed"),
+        tf.make_solver(stages=((10.0, 3),), driver="scan"),
         tf.make_solver(stages=((3.0, 2), (1.0, 4))))
     tst = trun(qt, bt)
     assert np.abs(np.asarray(st.q) - tst.q.numpy()).max() < 1e-8

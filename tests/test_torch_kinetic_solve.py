@@ -5,8 +5,8 @@ JAX package, float64, on the problem of ``tests/test_torch_kinetic.py``
 linear solver, the port's with its CPU default (the scan). Bound: the same
 iterations and accepted steps per lane, q and the final costs within 1e-6
 relative (observed ~4e-10: eight steps, each through float64
-factorizations whose rounding differs). Options the port does not run yet
-raise ``NotImplementedError``.
+factorizations whose rounding differs). Every option builds; an unknown
+driver raises ``ValueError``.
 """
 import jax
 import numpy as np
@@ -38,9 +38,13 @@ def test_annealed_solve_matches_jax():
 
 
 def test_unported_kinetic_options_raise():
+    """Every option of the JAX solver is ported (their parity:
+    ``tests/test_torch_kinetic_options.py``): each builds a solver with
+    either driver; only a driver the JAX package lacks raises."""
     for kw in (dict(enable_lcp=True), dict(use_2d_reprojections=False)):
-        with pytest.raises(NotImplementedError):
-            tkn.KineticFTE(tkn.KineticConfig(**kw), SUBJECT)
-    with pytest.raises(NotImplementedError):
+        fte = tkn.KineticFTE(tkn.KineticConfig(**kw), SUBJECT)
+        for driver in ("while", "scan"):
+            assert callable(fte.make_solver(driver=driver))
+    with pytest.raises(ValueError):
         tkn.KineticFTE(tkn.KineticConfig(), SUBJECT).make_solver(
-            driver="scan")
+            driver="fixed")

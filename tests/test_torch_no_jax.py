@@ -8,7 +8,10 @@ set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
 it (``run_monocular``, the default and physics-based modes, tiny
 schedules, priors trained on small procedural tables), the model
 selection and the batched data-driven ablation (``--run_data_driven_
-ablation_study --batched``) on it, and import the
+ablation_study --batched``) on it, the solver options (the fixed-length
+driver, the joint shutter-delay solve, the physics stage with the
+complementarity penalty and 3D tracking, the rolling AR refinement), and
+import the
 force-plate analysis and the static GRF solver and run the solver on a
 short trajectory, and write, read and assemble the first trial's pairwise
 pseudo-measurements (``data/ppm``); then check
@@ -45,10 +48,13 @@ SCRIPT = textwrap.dedent("""
     from cheetah_pose_estimation_tpu_torch.models import params
     fte = kin.KinematicFTE(kin.KinematicConfig(),
                            params.get_subject("acinoset"))
-    probe = fte.make_solver(stages=((10.0, 2),), driver="fixed")
+    probe = fte.make_solver(stages=((10.0, 2),), driver="scan")
     full = fte.make_solver(stages=((3.0, 2), (1.0, 2)))
     st = pbatch.make_multistart_probe(probe, full)(q0b, batched)
     assert st.q.shape == (2, 16, 54) and torch.isfinite(st.cost).all()
+    st_scan = fte.make_solver(stages=((3.0, 2), (1.0, 2)), driver="scan")(
+        q0b, batched)
+    assert st_scan.it.tolist() == [4, 4]
     from cheetah_pose_estimation_tpu_torch import convert
     from cheetah_pose_estimation_tpu_torch.pipeline import batched as pb
     from cheetah_pose_estimation_tpu_torch.pipeline import depth_anchor
@@ -63,7 +69,7 @@ SCRIPT = textwrap.dedent("""
     q, ok, shifts = pb.run_data_driven(
         st.q, batched, convert.gmm_prior(prior, 2, device="cpu"), mm,
         params.get_subject("acinoset"), stages=((10.0, 1), (1.0, 2)),
-        scan_stages=((1.0, 1),))
+        scan_stages=((1.0, 1),), motion_prior_rolling=1)
     assert q.shape == (2, 16, 54) and torch.isfinite(q).all()
     assert ok.shape == (2,) and shifts.shape == (2,)
     from cheetah_pose_estimation_tpu_torch.pipeline import contacts
@@ -156,6 +162,22 @@ SCRIPT = textwrap.dedent("""
         0, 40)
     assert meas.shape == (40, 6, 24, 2, 3) and w.shape == (40, 6, 24, 3)
     assert np.array_equal(meas[..., 0], est.data.meas[..., 0])
+    # the solver options: the joint shutter-delay solve, then the physics
+    # stage with the complementarity penalty and 3D tracking
+    kin.KinematicFTE.make_joint_shutter_solver.__defaults__ = (2,) + \
+        kin.KinematicFTE.make_joint_shutter_solver.__defaults__[1:]
+    opt = os.path.join(tmp, "options")
+    est = estimator.init_trajectory(tmp, os.path.join(d, c, t), c,
+                                    shutter_delay_estimation=True)
+    assert estimator.estimate_kinematics(est, out_dir_prefix=opt,
+                                         dtype=torch.float64, device="cpu")
+    assert est.shutter_delay.shape == (6,) and est.shutter_delay[0] == 0.0
+    assert sorted(est.solution_details())[0] == "cost"
+    estimator.determine_contacts(est, out_dir_prefix=opt)
+    assert estimator.estimate_kinetics(
+        est, enable_lcp=True, use_2d_reprojections=False, out_dir_prefix=opt,
+        save=False, dtype=torch.float64, device="cpu")
+    assert results.check_lcp(est.grf_z, np.zeros_like(est.grf_z))["ok"]
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                          "cheetah_pose_estimation_tpu"))

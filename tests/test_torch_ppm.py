@@ -37,8 +37,7 @@ from cheetah_pose_estimation_tpu_torch.models import params as tparams
 from cheetah_pose_estimation_tpu_torch.pipeline import estimator as test_
 from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset as trd
 
-from test_torch_serial_kinematics import (pose_tables, same_gmm_draw,
-                                          serial_schedules)
+from test_torch_serial_kinematics import pose_tables, serial_schedules
 
 torch.set_num_threads(1)
 FLICK = ("jules", "2017_12_09/bottom", "flick2")
@@ -220,7 +219,6 @@ def acinoset_runs(flick_tree, tmp_path_factory):
     jout, tout = str(tmp / "jax"), str(tmp / "port")
     with pytest.MonkeyPatch.context() as mp:
         serial_schedules(mp)
-        same_gmm_draw(mp)
         dset = pose_tables(tmp)
         mp.setattr(jest, "DATA_DRIVEN_DATASET", dset)
         mp.setenv("CHEETAH_DATA_DRIVEN_DATASET", dset)

@@ -133,8 +133,9 @@ def test_gmm_densities_and_export_match_jax(jax_gmm):
 
 
 def test_em_from_jax_initial_means_matches_jax(jax_gmm):
-    """50 EM steps from the JAX package's own k-means++ draw (a torch
-    generator cannot reproduce jax.random)."""
+    """50 EM steps from given initial means: the JAX package's own
+    k-means++ draw (the port's draw is held equal to it in
+    ``tests/test_torch_kmeanspp.py``)."""
     X, params = jax_gmm
     means0 = np.asarray(jgmm._kmeanspp_init(jax.random.PRNGKey(42),
                                             jnp.asarray(X), 5))

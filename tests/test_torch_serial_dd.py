@@ -6,8 +6,8 @@ learned priors (the bootstrap multistart, the GMM chain and its gate, the
 AR anchors, the polish, the line-scan), q within 1e-6 (the bar of
 ``test_torch_cli.py``'s data-driven case), the same decisions and
 artifacts. The priors are trained by both packages on the same small
-procedural tables, the port's EM started from the JAX package's k-means++
-draw (a torch generator cannot reproduce ``jax.random``).
+procedural tables, the port's EM from its own k-means++ draw, which is
+the JAX package's (``priors/gmm.kmeanspp_indices``).
 
 The line-scan case holds the saved objective after a re-polish: both
 packages save it under the data of the solve before the shift (not the
@@ -24,7 +24,7 @@ from test_torch_cli import PATHS, tree  # noqa: F401
 from test_torch_serial_kinematics import (_one_trial, _pickle, _sub,
                                           check_estimate_kinematics,
                                           instrumented, pose_tables,
-                                          same_gmm_draw, serial_schedules)
+                                          serial_schedules)
 
 torch.set_num_threads(1)
 
@@ -42,7 +42,6 @@ def test_obj_cost_after_repolish_matches_jax(tree, tmp_path, monkeypatch):
     re-polished problem's objective."""
     root, _ = tree
     serial_schedules(monkeypatch)
-    same_gmm_draw(monkeypatch)
     dset = pose_tables(tmp_path)
     SHIFT = -0.2
 

@@ -13,7 +13,6 @@ import os
 import pickle
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +23,6 @@ from cheetah_pose_estimation_tpu.parallel import batch as jbatch
 from cheetah_pose_estimation_tpu.pipeline import depth_anchor as jda
 from cheetah_pose_estimation_tpu.pipeline import estimator as jest
 from cheetah_pose_estimation_tpu.priors import dataset as jds
-from cheetah_pose_estimation_tpu.priors import gmm as jgmm
 from cheetah_pose_estimation_tpu.solver import kinematic as jkin
 from cheetah_pose_estimation_tpu_torch.parallel import batch as tbatch
 from cheetah_pose_estimation_tpu_torch.pipeline import batched as tpb
@@ -32,7 +30,6 @@ from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
 from cheetah_pose_estimation_tpu_torch.pipeline import depth_anchor as tda
 from cheetah_pose_estimation_tpu_torch.pipeline import estimator as test_
 from cheetah_pose_estimation_tpu_torch.priors import dataset as tds
-from cheetah_pose_estimation_tpu_torch.priors import gmm as tgmm
 from cheetah_pose_estimation_tpu_torch.solver import kinematic as tkin
 
 from test_torch_cli import CAM, PATHS, TRIALS, tree  # noqa: F401
@@ -59,14 +56,6 @@ def serial_schedules(mp):
     mp.setattr(jda.make_depth_linescan, "__defaults__",
                d[:2] + (((1.0, 4),),) + d[3:])
     mp.setattr(tda.make_depth_linescan, "__defaults__", (((1.0, 4),),))
-
-
-def same_gmm_draw(mp):
-    """The port's EM starts from the JAX package's k-means++ draw."""
-    def draw(generator, X, k):
-        return torch.as_tensor(np.asarray(jgmm._kmeanspp_init(
-            jax.random.PRNGKey(42), jnp.asarray(X.numpy()), k)))
-    mp.setattr(tgmm, "_kmeanspp_init", draw)
 
 
 def pose_tables(tmp_path):
@@ -165,22 +154,23 @@ def _sub(mode):
             "data-driven": f"fte_kinematic_{CAM}"}[mode]
 
 
-def check_estimate_kinematics(tree, tmp_path, monkeypatch, mode):
+def check_estimate_kinematics(tree, tmp_path, monkeypatch, mode, **options):
     """One mode of ``estimate_kinematics`` in both packages on the first
-    trial (each trial costs the JAX package a compile of every solve): the
-    same decisions, the same artifacts, q within the mode's bar."""
+    trial (each trial costs the JAX package a compile of every solve), with
+    ``options`` passed to both: the same decisions, the same artifacts, q
+    within the mode's bar."""
     from chip_smoke import describe
 
     root, _ = tree
     monocular, priors = MODES[mode]
     serial_schedules(monkeypatch)
-    same_gmm_draw(monkeypatch)
     dset = pose_tables(tmp_path) if priors else None
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
     rec = {}
     i, p = 0, PATHS[0]
     ej, et = _one_trial(root, i, monocular)
-    kw = dict(monocular_constraints=priors, data_driven_dataset=dset)
+    kw = dict(monocular_constraints=priors, data_driven_dataset=dset,
+              **options)
     with instrumented(rec):
         assert jest.estimate_kinematics(ej, out_dir_prefix=jout, **kw)
     rep = {}

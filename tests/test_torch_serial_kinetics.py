@@ -27,8 +27,7 @@ from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset as trd
 from cheetah_pose_estimation_tpu_torch.solver import kinetic as tkn
 
 from test_torch_cli import CAM, PATHS, TRIALS, _dd_artifacts, tree  # noqa
-from test_torch_serial_kinematics import (instrumented, pose_tables,
-                                          same_gmm_draw)
+from test_torch_serial_kinematics import instrumented, pose_tables
 
 torch.set_num_threads(1)
 KSHORT = ((3.0, 3), (1.0, 5))
@@ -58,7 +57,6 @@ def priors_for_both(mp, path):
     """The training table both packages' physics solves read, under
     ``path``."""
     dset = pose_tables(path)
-    same_gmm_draw(mp)
     mp.setattr(jest, "DATA_DRIVEN_DATASET", dset)
     mp.setenv("CHEETAH_DATA_DRIVEN_DATASET", dset)
     return dset

@@ -41,7 +41,7 @@ from cheetah_pose_estimation_tpu_torch.solver import kinematic as tkin
 from cheetah_pose_estimation_tpu_torch.utils import data_ops as tops
 
 from test_torch_cli import TRIALS, _short_schedules, tree  # noqa: F401
-from test_torch_serial_kinematics import pose_tables, same_gmm_draw
+from test_torch_serial_kinematics import pose_tables
 
 torch.set_num_threads(1)
 SCAN = ((1.0, 4),)
@@ -57,7 +57,6 @@ def short_studies(mp):
                d[:2] + (SCAN,) + d[3:])
     mp.setattr(tpb.run_data_driven, "__defaults__",
                (((10.0, 3), (3.0, 3), (1.0, 8)), SCAN, None))
-    same_gmm_draw(mp)
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +160,6 @@ def test_model_selection_matches_jax(tmp_path, monkeypatch):
     within 1e-6 and equal non-zero counts; each package's pickle holds the
     JAX keys and reads back through the other's loader."""
     dset = pose_tables(tmp_path)
-    same_gmm_draw(monkeypatch)
     kw = dict(pose_components=(1, 2), window_sizes=(1, 2))
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
     j = jst.model_selection_analysis(dset, out_dir=jdir, **kw)

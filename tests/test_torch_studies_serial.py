@@ -16,7 +16,7 @@ from cheetah_pose_estimation_tpu.pipeline import studies as jst
 from cheetah_pose_estimation_tpu_torch.pipeline import studies as tst
 
 from test_torch_cli import TRIALS, tree  # noqa: F401
-from test_torch_serial_kinematics import same_gmm_draw, serial_schedules
+from test_torch_serial_kinematics import serial_schedules
 from test_torch_studies import outputs, rows_match, saved  # noqa: F401
 
 torch.set_num_threads(1)
@@ -24,7 +24,6 @@ torch.set_num_threads(1)
 
 def serial_priors(mp, dset):
     """Both packages' default training table is ``dset``."""
-    same_gmm_draw(mp)
     mp.setattr(jest, "DATA_DRIVEN_DATASET", dset)
     mp.setenv("CHEETAH_DATA_DRIVEN_DATASET", dset)
 

@@ -25,7 +25,7 @@ from cheetah_pose_estimation_tpu.pipeline import studies as jst
 from cheetah_pose_estimation_tpu_torch.pipeline import studies as tst
 
 from test_torch_cli import _short_schedules
-from test_torch_serial_kinematics import pose_tables, same_gmm_draw
+from test_torch_serial_kinematics import pose_tables
 from test_torch_serial_kinetics import keep_stances, kinetic_schedules
 
 torch.set_num_threads(1)
@@ -36,7 +36,6 @@ COLUMNS = ["rate", "default_mpjpe", "dd_mpjpe", "improvement_pct",
 
 def test_degradation_sweep_matches_jax(tmp_path, monkeypatch):
     dset = pose_tables(tmp_path)
-    same_gmm_draw(monkeypatch)
     _short_schedules(monkeypatch)
     kinetic_schedules(monkeypatch)
     keep_stances(monkeypatch)

@@ -39,7 +39,7 @@ def test_link_tables_equal_jax():
 
 def test_noise_tables_equal_jax():
     for name in ("R_BASE", "_R_PW1", "_R_PW2", "R_PW", "_Q_STD", "Q",
-                 "EOM_SLACK_FLOOR"):
+                 "EOM_SLACK_FLOOR", "KINEMATIC_M"):
         assert np.array_equal(getattr(tnoise, name), getattr(jnoise, name)), \
             name
     for n in (1, 3):
