@@ -312,3 +312,12 @@ def tau_from_dict(tau: dict, n_frames: int) -> np.ndarray:
 
 TORQUE_MAP = build_torque_map()
 N_TAU = TORQUE_MAP.B.shape[1]
+
+
+def torque_generalized_forces(tau: torch.Tensor, force_scale: float
+                              ) -> torch.Tensor:
+    """tau (..., 22) in body-weight units -> generalized forces (..., 54),
+    ``B_tau (tau * force_scale)`` (JAX ``eom.py:266-270``), in tau's dtype
+    and on its device."""
+    B = constant("torque_map", tau, lambda: TORQUE_MAP.B)
+    return (tau * force_scale) @ B.mT

@@ -255,22 +255,31 @@ DEAD_ZONE_M = 0.05
 
 
 def make_depth_linescan(subject: SubjectParams,
-                        stages: Tuple = ((1.0, 60),)):
+                        stages: Tuple = ((1.0, 60),), *,
+                        shifts: Tuple[float, ...] = SCAN_SHIFTS,
+                        finish_stages: Optional[Tuple] = None,
+                        margin: float = SCAN_MARGIN,
+                        dtype: Optional[torch.dtype] = None):
     """Monocular depth line-scan: re-solve at candidate depths, keep the
-    clear winner.
+    clear winner (JAX ``depth_anchor.py:333-446``).
 
-    Every trial is shifted by each offset of ``SCAN_SHIFTS`` along its
-    per-frame camera rays and re-solved with the prior-free judge config (a
-    fixed ``stages`` schedule); all 7 x B lanes are one batch. Per trial the
-    best candidate is accepted only if its cost beats the zero-shift lane's
-    by more than ``SCAN_MARGIN`` (relative) and lies inside the grid (an
-    edge pick is not bracketed); otherwise the input trajectory ships
-    unchanged. An optional per-trial ``scale_med`` (from
-    :func:`scale_median`), where its |median| clears ``DEAD_ZONE_M``,
-    restricts candidates to its sign and to 2 |median| + 0.15 m.
+    Every trial is shifted by each offset of ``shifts`` (one of them 0)
+    along its per-frame camera rays and re-solved with the prior-free
+    judge config (a fixed ``stages`` schedule); all len(shifts) x B lanes
+    are one batch. Per trial the best candidate is accepted only if its
+    cost beats the zero-shift lane's by more than ``margin`` (relative) and
+    lies inside the grid (an edge pick is not bracketed); otherwise the
+    input trajectory ships unchanged. An optional per-trial ``scale_med``
+    (from :func:`scale_median`), where its |median| clears the scan's
+    ``dead_zone_m``, restricts candidates to its sign and to 2 |median| +
+    0.15 m. With ``finish_stages`` the winners are re-annealed by a second
+    solver of that schedule over all B lanes, and only the accepted ones
+    take its result. ``dtype``: the scan's (the input's when None).
 
-    Returns ``scan(q_in, batched, rays, scale_med=None) -> (q_out (B,N,54)
-    tensor, shift (B,) numpy)``."""
+    Returns ``scan(q_in, batched, rays, scale_med=None,
+    dead_zone_m=DEAD_ZONE_M) -> (q_out (B,N,54) tensor, shift (B,)
+    numpy)``. The keyword-only options keep ``__defaults__`` to
+    ``stages`` alone."""
     from ..solver import kinematic as kin
 
     fte = kin.KinematicFTE(kin.KinematicConfig(fisheye=True, robust=True),
@@ -279,11 +288,19 @@ def make_depth_linescan(subject: SubjectParams,
     # stage, the while loop for more
     run = fte.make_solver(stages=stages,
                           driver="scan" if len(stages) == 1 else "while")
-    offs = SCAN_SHIFTS
+    finish = None if finish_stages is None else \
+        fte.make_solver(stages=finish_stages)
+    offs = tuple(float(s) for s in shifts)
     ZI = offs.index(0.0)
     Kn = len(offs)
 
-    def scan(q_in: torch.Tensor, batched, rays: np.ndarray, scale_med=None):
+    def scan(q_in: torch.Tensor, batched, rays: np.ndarray, scale_med=None,
+             dead_zone_m: float = DEAD_ZONE_M):
+        if dtype is not None:
+            q_in = q_in.to(dtype)
+            batched = kin.map_data(
+                lambda x: x.to(dtype) if torch.is_tensor(x)
+                and x.is_floating_point() else x, batched)
         B = q_in.shape[0]
         raysb = torch.as_tensor(np.asarray(rays), dtype=q_in.dtype,
                                 device=q_in.device)
@@ -296,7 +313,7 @@ def make_depth_linescan(subject: SubjectParams,
         offv = np.asarray(offs)
         if scale_med is not None:
             med = np.asarray(scale_med, np.float64)
-            act = np.abs(med) > DEAD_ZONE_M
+            act = np.abs(med) > dead_zone_m
             sign_ok = (offv[:, None] == 0.0) \
                 | (np.sign(offv)[:, None] == np.sign(med)[None, :])
             mag_ok = np.abs(offv)[:, None] \
@@ -304,7 +321,7 @@ def make_depth_linescan(subject: SubjectParams,
             allowed = ~act[None, :] | (sign_ok & mag_ok)
             c = np.where(allowed, c, np.inf)
         best = np.argmin(c, axis=0)
-        thr = c[ZI] - SCAN_MARGIN * np.abs(c[ZI])
+        thr = c[ZI] - margin * np.abs(c[ZI])
         accept = c[best, np.arange(B)] < thr
         accept &= (best > 0) & (best < Kn - 1)
         shift_out = np.where(accept, offv[best], 0.0)
@@ -313,6 +330,9 @@ def make_depth_linescan(subject: SubjectParams,
         qsol = st.q.reshape((Kn, B) + tuple(q_in.shape[1:]))
         qf = qsol[torch.as_tensor(best, device=q_in.device),
                   torch.arange(B, device=q_in.device)]
+        if finish is not None:
+            # every lane is re-annealed; the unaccepted keep their input
+            qf = finish(qf, batched).q
         acc = torch.as_tensor(accept, device=q_in.device)[:, None, None]
         return torch.where(acc, qf, q_in), shift_out
 

@@ -125,31 +125,50 @@ def train_motion_model(dataset: Union[str, ds.PoseTable],
                        alpha: float = 1e-2,
                        validation: Union[str, ds.PoseTable, None] = None,
                        device: DeviceLike = None,
-                       cache_dir: Optional[str] = None) -> MotionModel:
-    """Train the AR motion model over the 28 pose columns of a pose table
-    (consecutive frames, window ``window_size``): a CSV path (as the JAX
-    function takes) or a :class:`~.dataset.PoseTable`. ``validation``
-    defaults to ``validation_dataset.csv`` beside a training path. Raises on
-    non-finite coefficients.
+                       cache_dir: Optional[str] = None,
+                       num_vars: int = 28, start_idx: int = 0,
+                       window_time: int = 1,
+                       pose_model=None) -> MotionModel:
+    """Train the AR motion model over the pose columns ``start_idx`` ..
+    ``start_idx + num_vars`` of a pose table (JAX ``armodel.py:158-225``):
+    a CSV path (as the JAX function takes) or a
+    :class:`~.dataset.PoseTable`. Each target frame is regressed on the
+    ``window_size`` frames ``window_time`` apart before it.
+    ``validation`` defaults to ``validation_dataset.csv`` beside a training
+    path. Raises on non-finite coefficients.
+
+    ``pose_model`` (a :class:`~.pca.PoseModel`): the rows of both tables
+    go through ``pose_model.project`` before the windows, so the model
+    lives in the (ext_dim + n_comps)-dim reduced space (reference
+    ``MotionModel(pose_model=...)``, acinoset_models.py:182-257).
 
     With ``cache_dir`` the coefficients are stored there as
     ``lr_model_<md5>.torch.pkl``, keyed by the md5 of the training windows
-    and the settings, and loaded from there when it exists."""
+    and the settings (a PCA model's windows and key differ from a
+    full-space one's), and loaded from there when it exists."""
     if validation is None:
         if not isinstance(dataset, str):
             raise ValueError("a validation table is needed when the training "
                              "table is passed as arrays")
         validation = os.path.join(os.path.dirname(dataset),
                                   "validation_dataset.csv")
-    tab, tabv = _table(dataset), _table(validation)
-    X, y = ds.windowed_dataset(tab.data, tab.index, window_size)
-    Xv, yv = ds.windowed_dataset(tabv.data, tabv.index, window_size)
+
+    def rows(src):
+        tab = _table(src)
+        data = tab.data[:, start_idx:start_idx + num_vars]
+        if pose_model is not None:
+            data = pose_model.project(data)
+        return ds.windowed_dataset(data, tab.index, window_size, window_time)
+
+    (X, y), (Xv, yv) = rows(dataset), rows(validation)
     cache_path = None
     if cache_dir is not None:
+        os.makedirs(cache_dir, exist_ok=True)
         m = hashlib.md5()
         for a in (X, y):
             m.update(np.ascontiguousarray(a, np.float64).tobytes())
-        m.update(repr((window_size, lasso, alpha)).encode())
+        m.update(repr((window_size, lasso, alpha, num_vars, start_idx,
+                       window_time, pose_model is not None)).encode())
         cache_path = os.path.join(cache_dir,
                                   f"lr_model_{m.hexdigest()}.torch.pkl")
     if cache_path is not None and os.path.isfile(cache_path):
@@ -174,7 +193,7 @@ def train_motion_model(dataset: Union[str, ds.PoseTable],
         error_variance=np.var(resid, axis=0),
         train_rmse=float(np.sqrt(np.mean(resid ** 2))),
         validation_rmse=float(np.sqrt(np.mean(residv ** 2))),
-        window_size=window_size, window_time=1, lasso=lasso)
+        window_size=window_size, window_time=window_time, lasso=lasso)
 
 
 def motion_weights(model: MotionModel) -> np.ndarray:

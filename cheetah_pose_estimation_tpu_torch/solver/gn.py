@@ -200,6 +200,21 @@ def lm_solve_scan(cost_fn: Callable, normal_fn: Callable, q0: torch.Tensor,
                                                                  q0.shape[0]))
 
 
+def lm_solve(cost_fn: Callable, normal_fn: Callable, q0: torch.Tensor,
+             config: LMConfig = LMConfig()) -> LMState:
+    """One-stage LM from q0 (B, N, d) (JAX ``gn.py:184-197``, the
+    trajectory-generation tasks' solver): ``cost_fn(q) -> (B,)`` and
+    ``normal_fn(q) -> (g, H)``. The loop runs while any lane is below
+    ``max_iters`` and not done; a lane whose condition is false keeps its
+    state (the batched ``while_loop``)."""
+    s = _init_state(cost_fn, q0, config)
+    while True:
+        cond = (s.it < config.max_iters) & ~s.done
+        if not bool(cond.any()):
+            return s
+        s = _select(cond, _lm_step(s, cost_fn, normal_fn, config), s)
+
+
 def lm_solve_annealed(cost_fn: Callable, normal_fn: Callable,
                       q0: torch.Tensor,
                       stages: Tuple[Tuple[float, int], ...],

@@ -14,7 +14,10 @@ complementarity penalty and 3D tracking, the rolling AR refinement), and
 import the
 force-plate analysis and the static GRF solver and run the solver on a
 short trajectory, and write, read and assemble the first trial's pairwise
-pseudo-measurements (``data/ppm``); then check
+pseudo-measurements (``data/ppm``), the dynamics tools (a tiny
+trajectory-generation solve, RK4 steps with passive elements) and the
+remaining prior options (a PCA fit, a PCA-space AR model, a line-scan with
+a finish); then check
 ``sys.modules``. No
 module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
 own copies of the tables it needs."""
@@ -178,6 +181,40 @@ SCRIPT = textwrap.dedent("""
         est, enable_lcp=True, use_2d_reprojections=False, out_dir_prefix=opt,
         save=False, dtype=torch.float64, device="cpu")
     assert results.check_lcp(est.grf_z, np.zeros_like(est.grf_z))["ok"]
+    # the dynamics tools: a tiny task solve, RK4 steps with passive
+    # elements; the PCA prior, the PCA-space AR model, a finished line-scan
+    from cheetah_pose_estimation_tpu_torch.dynamics import passive, simulate
+    from cheetah_pose_estimation_tpu_torch.dynamics import tasks
+    from cheetah_pose_estimation_tpu_torch.priors import pca
+    sub = params.get_subject("acinoset")
+    out = tasks.high_speed_stop(sub, n_frames=6, settle_frames=2,
+                                max_iters=2, device="cpu",
+                                dtype=torch.float64)
+    assert out["q"].shape == (6, 54) and out["iterations"] == 2
+    joint = [("base", "tail0", "y")]
+    ext = passive.make_ext_q_fn(
+        sub, passive.cylinder_drag_coefficients(sub),
+        passive.make_torque_spring(joint, 50.0, device="cpu"),
+        passive.make_torque_damper(joint, 5.0, device="cpu"))
+    qs, _ = simulate.simulate(sub, simulate.drop_pose(sub, height=0.9),
+                              np.zeros(54), 4 * 2e-4, record_every=2,
+                              ext_q_fn=ext, device="cpu")
+    assert qs.shape == (3, 54) and np.isfinite(qs).all()
+    pm = pca.fit(train)
+    mmp = armodel.train_motion_model(train, validation=val, pose_model=pm,
+                                     device="cpu")
+    assert mmp.coef.shape == (11, 44) and np.isfinite(mmp.coef).all()
+    qn = st.q.double().numpy()
+    rays = np.stack([depth_anchor.camera_ray(
+        qn[i], batched.cam.R[i, 0].numpy(), batched.cam.t[i, 0].numpy())
+        for i in range(2)])
+    # margin -1 accepts the zero shift, so the finish runs on both lanes
+    scan = depth_anchor.make_depth_linescan(
+        sub, ((1.0, 1),), shifts=(0.5, 0.0, 0.5), margin=-1.0,
+        finish_stages=((1.0, 1), (1.0, 1)))
+    q_fin, sh = scan(st.q, batched, rays)
+    assert q_fin.shape == (2, 16, 54) and torch.isfinite(q_fin).all()
+    assert not torch.equal(q_fin, st.q) and sh.tolist() == [0.0, 0.0]
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                          "cheetah_pose_estimation_tpu"))

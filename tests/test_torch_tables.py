@@ -116,3 +116,51 @@ def test_dataset_flags_need_the_card_or_cpu(monkeypatch, tmp_path, flag):
                           "--out_dir_prefix", out])
     # on the CPU, an empty root solves nothing
     assert fn(root, out, device="cpu") in ([], None)
+
+
+def _dynamics_entry_points():
+    """Each new entry point of the dynamics tools and prior options, called
+    at a tiny size with the given device keyword."""
+    from cheetah_pose_estimation_tpu_torch.dynamics import passive, simulate
+    from cheetah_pose_estimation_tpu_torch.dynamics import tasks
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.priors import armodel, pca
+
+    sub = tparams.get_subject("acinoset")
+    joint = [("base", "tail0", "y")]
+
+    def pca_ar(**kw):
+        tab = bench_lib.procedural_pose_table((100,), n_frames=30)
+        return armodel.train_motion_model(tab, validation=tab,
+                                          pose_model=pca.fit(tab), **kw)
+
+    return {
+        "high_speed_stop": lambda **kw: tasks.high_speed_stop(
+            sub, n_frames=5, settle_frames=2, max_iters=1,
+            dtype=torch.float64, **kw),
+        "periodic_gallop": lambda **kw: tasks.periodic_gallop(
+            sub, n_frames=6, foot_order=((1, 3), (2, 4), (3, 5), (4, 6)),
+            max_iters=1, dtype=torch.float64, **kw),
+        "simulate": lambda **kw: simulate.simulate(
+            sub, simulate.drop_pose(sub), np.zeros(54), 2e-4,
+            record_every=1, **kw),
+        "drop_test": lambda **kw: simulate.drop_test(sub, duration=2e-4,
+                                                     **kw),
+        "make_torque_spring": lambda **kw: passive.make_torque_spring(
+            joint, 1.0, **kw),
+        "make_torque_damper": lambda **kw: passive.make_torque_damper(
+            joint, 1.0, **kw),
+        "train_motion_model(pose_model)": pca_ar,
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_dynamics_entry_points()))
+def test_dynamics_entry_points_need_the_card_or_cpu(monkeypatch, entry):
+    """The trajectory-generation tasks, the simulator, the passive elements
+    and the PCA-space AR model take the card by default, raise without
+    one, and run on the CPU when told."""
+    fn = _dynamics_entry_points()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn()
+    assert fn(device="cpu") is not None
