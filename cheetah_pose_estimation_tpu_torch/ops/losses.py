@@ -2,7 +2,8 @@
 
 Port of ``cheetah_pose_estimation_tpu/ops/losses.py``: the reference's
 smoothed three-part redescending loss, the Huber loss of the physics stage's
-measurement term, and per-residual (gradient, curvature) weights for a cost
+measurement term, the Cauchy and Fair losses (``results.plot_cost_functions``
+draws them), and per-residual (gradient, curvature) weights for a cost
 sum rho(w * r). The JAX package derives psi = rho' with ``jax.grad``
 (``ops/losses.py:75-81``); here psi is written out term by term, in the same
 arithmetic as that autodiff.
@@ -58,6 +59,18 @@ def redescending_psi(e: torch.Tensor, a=3.0, b=10.0, c=20.0) -> torch.Tensor:
         + (sb - sc) * k2 * 2 * u / (c - b)
     d = d + dc * (k1 + k2)
     return torch.where(e >= 0, d, -d)
+
+
+def cauchy(r: torch.Tensor, c) -> torch.Tensor:
+    """Cauchy loss c^2 log(1 + (r / c)^2) (JAX ``ops/losses.py:48-49``)."""
+    return c**2 * torch.log1p((r / c)**2)
+
+
+def fair(r: torch.Tensor, c) -> torch.Tensor:
+    """Fair loss c^2 (|r| / c - log(1 + |r| / c)) (JAX
+    ``ops/losses.py:52-54``)."""
+    a = torch.abs(r) / c
+    return c**2 * (a - torch.log1p(a))
 
 
 def huber(r: torch.Tensor, delta) -> torch.Tensor:

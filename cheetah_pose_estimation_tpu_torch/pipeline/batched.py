@@ -324,6 +324,48 @@ def _trial_objective(fte: kin.KinematicFTE, est, dtype, dev) -> float:
     return float(fte.objective(q1, d1)[0])
 
 
+def _ray_polish(qs: np.ndarray, batched: kin.KinematicData,
+                subject: SubjectParams, cfg_free: kin.KinematicConfig,
+                rays: Sequence[Tuple[int, float, float, np.ndarray,
+                                     np.ndarray]], stages):
+    """The depth correction and anchored polish shared by
+    :func:`_anchor_polish` and ``bench_lib.make_anchor_polish``: per trial
+    (``rays``: its frame count, fps, ground height and its camera's R and
+    t) the ray shift of ``depth_anchor.ray_depth_correction``; a trial with
+    no shift is left alone. Then one warm-started LM run over the batch
+    under ``cfg_free`` with ``POLISH_CFG``'s ground terms on, and per trial
+    the polish kept only where its ``cfg_free`` objective is finite and no
+    more than 5 % above the input's. Returns (qs polished (numpy), the
+    per-trial first shift component, the per-trial acceptance)."""
+    B, Npad = qs.shape[0], qs.shape[1]
+    dev, dtype = batched.meas.device, batched.meas.dtype
+    tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    stance_b = np.zeros((B, Npad, 4))
+    gz = np.array([r[2] for r in rays], np.float64)
+    shifts = np.zeros(B)
+    qs_corr = qs.copy()
+    for i, (n, fps, g, R, t) in enumerate(rays):
+        qc, stw, shift = danchor.ray_depth_correction(qs[i, :n], subject,
+                                                      fps, g, R, t)
+        shifts[i] = float(shift[0])
+        if float(np.max(np.abs(shift))) == 0.0:
+            continue
+        qs_corr[i, :n] = qc
+        stance_b[i, :n] = stw
+    if stance_b.sum() == 0.0:
+        return qs, shifts, np.zeros(B, bool)
+    pol = kin.KinematicFTE(dataclasses.replace(cfg_free, **danchor.POLISH_CFG),
+                           subject)
+    st = pol.make_solver(stages=stages)(
+        tens(qs_corr), batched._replace(ground_z=tens(gz),
+                                        stance_w=tens(stance_b)))
+    gate = kin.KinematicFTE(cfg_free, subject)
+    c0 = _np(gate.objective(tens(qs), batched))
+    c1 = _np(gate.objective(st.q, batched))
+    accept = np.isfinite(c1) & (c1 <= 1.05 * c0)
+    return np.where(accept[:, None, None], _np(st.q), qs), shifts, accept
+
+
 def _anchor_polish(qs: np.ndarray, ests: List, batched: kin.KinematicData,
                    subject: SubjectParams, cfg_base: kin.KinematicConfig,
                    stages=danchor.POLISH_STAGES,
@@ -339,49 +381,23 @@ def _anchor_polish(qs: np.ndarray, ests: List, batched: kin.KinematicData,
     anchor off. A trial keeps its polish only when its plain kinematic
     objective (no priors, no anchors) got no more than 5 % worse: the shift
     is reprojection-neutral, so a material increase means the polish
-    diverged against bad stance evidence. With ``report``, the per-trial
-    ray shift and whether the trial changed are recorded in it. Returns
-    (qs polished, whether any trial changed)."""
-    B, Npad = qs.shape[0], qs.shape[1]
-    dev, dtype = batched.meas.device, batched.meas.dtype
-    tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-    stance_b = np.zeros((B, Npad, 4))
-    gz = np.zeros(B)
-    shifts = np.zeros(B)
-    qs_corr = qs.copy()
-    for i, est in enumerate(ests):
-        n = est.data.meas.shape[0]
-        ci = est.scene.cam_idx
-        gz[i] = float(est.params.ground_plane_height)
-        qc, stw, shift = danchor.ray_depth_correction(
-            qs[i, :n], subject, est.scene.fps, gz[i],
-            est.scene.r_arr[ci], est.scene.t_arr[ci])
-        shifts[i] = float(shift[0])
-        if float(np.max(np.abs(shift))) == 0.0:
-            continue
-        qs_corr[i, :n] = qc
-        stance_b[i, :n] = stw
-    out, live = qs, False
-    if stance_b.sum() != 0.0:
-        free = dict(use_gmm=False, use_ar=False, base_anchor_trans=0.0,
-                    base_anchor_rot=0.0)
-        pol = kin.KinematicFTE(dataclasses.replace(
-            cfg_base, **free, **danchor.POLISH_CFG), subject)
-        st = pol.make_solver(stages=stages)(
-            tens(qs_corr), batched._replace(ground_z=tens(gz),
-                                            stance_w=tens(stance_b)))
-        gate = kin.KinematicFTE(dataclasses.replace(cfg_base, **free),
-                                subject)
-        c0 = _np(gate.objective(tens(qs), batched))
-        c1 = _np(gate.objective(st.q, batched))
-        accept = np.isfinite(c1) & (c1 <= 1.05 * c0)
-        out = np.where(accept[:, None, None], _np(st.q), qs)
-        live = bool(accept.any())
+    diverged against bad stance evidence (:func:`_ray_polish`). With
+    ``report``, the per-trial ray shift and whether the trial changed are
+    recorded in it. Returns (qs polished, whether any trial changed)."""
+    rays = [(est.data.meas.shape[0], est.scene.fps,
+             float(est.params.ground_plane_height),
+             est.scene.r_arr[est.scene.cam_idx],
+             est.scene.t_arr[est.scene.cam_idx]) for est in ests]
+    free = dict(use_gmm=False, use_ar=False, base_anchor_trans=0.0,
+                base_anchor_rot=0.0)
+    out, shifts, accept = _ray_polish(
+        qs, batched, subject, dataclasses.replace(cfg_base, **free), rays,
+        stages)
     if report is not None:
         report.setdefault("polish_ray_shift", []).extend(shifts.tolist())
         report.setdefault("polish_changed", []).extend(
             bool(np.any(out[i] != qs[i])) for i in range(len(ests)))
-    return out, live
+    return out, bool(accept.any())
 
 
 def _launches() -> dict:

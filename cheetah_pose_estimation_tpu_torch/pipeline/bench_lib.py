@@ -3,10 +3,11 @@
 Port of ``cheetah_pose_estimation_tpu/pipeline/bench_lib.py``: batched
 monocular default-mode problems over procedural gallops (the fallback of
 ``load_reference_trajectories`` when the reference test set is absent),
-the physics stage's problems (``build_physics_batch``), and the per-trial
-quality metrics. Problem building is host work in numpy/float64;
-``build_batch`` and ``build_physics_batch`` put the stacked batch on
-``device``.
+the physics stage's problems (``build_physics_batch``), the per-trial
+quality metrics, the trials' names (``reference_trial_paths``) and the
+bench's ground-plane depth anchor (``make_anchor_polish``). Problem
+building is host work in numpy/float64; ``build_batch`` and
+``build_physics_batch`` put the stacked batch on ``device``.
 
 The data-driven stage's priors are trained on the AcinoSet pose dataset in
 production; while it is absent from the repository they are trained on a
@@ -44,6 +45,51 @@ def load_reference_trajectories(max_trials: Optional[int] = None):
     out = [(syn.gallop_trajectory(40 + 2 * i, seed=i), "acinoset", 120.0)
            for i in range(10)]
     return out[:max_trials] if max_trials else out
+
+
+def reference_trial_paths(max_trials: Optional[int] = None):
+    """Trial names in the order of :func:`load_reference_trajectories`
+    (JAX ``bench_lib.py:76-93``): without the reference test set, which
+    the port does not read, ``synthetic_gallop_{i}``."""
+    out = [f"synthetic_gallop_{i}" for i in range(10)]
+    return out[:max_trials] if max_trials else out
+
+
+def make_anchor_polish(subject, dtype: torch.dtype = torch.float32,
+                       device: DeviceLike = None):
+    """The monocular ground-plane depth anchor on bench problems (JAX
+    ``bench_lib.py:122-165``): per trial the analytic ray shift from its
+    camera (no shift: no polish), one batched anchored polish under
+    ``depth_anchor.POLISH_CFG`` and ``POLISH_STAGES`` from the shifted
+    trajectories, and per trial the polish kept where its prior-free
+    objective is finite and at most 5 % above the input's
+    (``batched._ray_polish``, shared with the dataset CLI's polish).
+
+    Returns run(qs, batched, trials, fpss, gphs, report=None) -> (B, Npad,
+    54) tensor of ``dtype`` on ``device`` (the card by default); with
+    ``report``, the per-trial shift and acceptance are recorded in it."""
+    from ..utils.device import resolve_device
+    from . import batched as batched_mod
+    from . import depth_anchor as danchor
+
+    dev = resolve_device(device)
+    cfg = kin.KinematicConfig(fisheye=True, robust=True)
+    stages = danchor.POLISH_STAGES
+
+    def run(qs_in, batched, trials, fpss, gphs, report=None):
+        qs_np = np.asarray(torch.as_tensor(qs_in).detach().cpu(), np.float64)
+        cam = batched.cam
+        host = lambda x: x.detach().double().cpu().numpy()
+        rays = [(tr.q_gt.shape[0], fpss[i], float(gphs[i]),
+                 host(cam.R[i, 0]), host(cam.t[i, 0]))
+                for i, tr in enumerate(trials)]
+        out, shifts, accept = batched_mod._ray_polish(
+            qs_np, batched, subject, cfg, rays, stages)
+        if report is not None:
+            report.update(shifts=shifts.tolist(), accept=accept.tolist())
+        return torch.as_tensor(out, dtype=dtype, device=dev)
+
+    return run
 
 
 def empty_priors(N: int):

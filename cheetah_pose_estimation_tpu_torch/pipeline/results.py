@@ -1,18 +1,19 @@
-"""Results and biomechanics analysis: the parts the force-plate analysis
-calls.
+"""Results and biomechanics analysis.
 
-Port of part of ``cheetah_pose_estimation_tpu/pipeline/results.py``: 2D
-reprojection error against hand labels (on the CSV tables, without pandas),
-the contact file's per-role stance table, stance-normalised gait curves
-(joint angles, torques, power per limb role), the friction-polygon check of
-solved GRFs, the ground complementarity check (``check_lcp``), the torque
-and gait plots, the per-camera robustness of
-one trial (``--run_analysis``), and the studies' figures (the ablation
-bars, the model-selection and grid-search curves; the studies' CSVs and
-pickle are read without pandas). The plots import matplotlib when called
-and write nothing where it is not installed; every metric is also returned
-as data. The rest of the JAX module (the GRF error against force plates,
-the contact check, the animated torque plot) is not ported.
+Port of ``cheetah_pose_estimation_tpu/pipeline/results.py``, in numpy on the
+host (the kinematics and the EOM in torch on the device of the call): 2D
+reprojection error against hand labels and the DLC detections' pixel error
+(on the CSV tables, without pandas), the contact file's per-role stance
+table, stance-normalised gait curves (joint angles, torques, power per limb
+role), mechanical power, the trajectory, torque, GRF and contact-detection
+errors, the friction-polygon and ground complementarity checks, the error
+bands over time, the per-camera robustness of one trial
+(``--run_analysis``), the pose prior's likelihood of a solved pose, and the
+studies' figures (the ablation bars, the model-selection and grid-search
+curves; the studies' CSVs and pickle are read without pandas). The plots
+import matplotlib when called; where it is not installed a plot-only
+function writes nothing and returns False, and one that also returns data
+returns it and prints a line naming the file it skipped.
 """
 from __future__ import annotations
 
@@ -507,3 +508,416 @@ def data_driven_analysis(dir_prefix: str,
     fig.savefig(os.path.join(dir_prefix, names[3]), bbox_inches="tight")
     plt.close(fig)
     return data
+
+
+def kinematic_error(q: np.ndarray, q_ref: np.ndarray) -> Dict[str, float]:
+    """RMSE of the base (q[:, :6]) and of the joint angles (q[:, 6:])
+    between two trajectories over their common frames (JAX
+    ``results.py:28-35``)."""
+    q, q_ref = np.asarray(q), np.asarray(q_ref)
+    n = min(len(q), len(q_ref))
+    base = float(np.sqrt(np.mean((q[:n, :6] - q_ref[:n, :6])**2)))
+    rel = float(np.sqrt(np.mean((q[:n, 6:] - q_ref[:n, 6:])**2)))
+    return {"base_rmse": base, "relative_rmse": rel}
+
+
+def grf_error(grf_z_est: np.ndarray, grf_z_meas: Dict[int, np.ndarray],
+              contacts: Dict, start_frame: int) -> Dict[str, float]:
+    """RMSE (body weights) of the estimated vertical GRF (N, 4 feet)
+    against the force plates' (``grf_z_meas``: plate index -> (n, 3)
+    forces) over each foot's stance frames of ``contacts`` (foot name ->
+    [[start, end, plate + 1, ...], ...]) (JAX ``results.py:209-231``)."""
+    errs = []
+    for i, name in enumerate(FOOT_NAMES):
+        seqs = contacts.get(name)
+        if seqs is None:
+            continue
+        plate = seqs[0][2] - 1
+        if plate not in grf_z_meas:
+            continue
+        meas = np.asarray(grf_z_meas[plate])[:, 2]
+        for s, e, *_ in seqs:
+            for f in range(s, e + 1):
+                t = f - start_frame
+                if 0 <= t < len(grf_z_est) and t < len(meas):
+                    errs.append(grf_z_est[t, i] - meas[t])
+    errs = np.asarray(errs)
+    if errs.size == 0:
+        return {"rmse_bw": float("nan"), "n": 0}
+    return {"rmse_bw": float(np.sqrt(np.mean(errs**2))), "n": int(errs.size)}
+
+
+def contact_detection_analysis(pred: Dict, labeled: Dict, n_frames: int,
+                               start_frame: int) -> Dict[str, float]:
+    """Per-frame precision, recall and F1 of the predicted stances against
+    the labelled ones (both foot name -> [[start, end, ...], ...] or None)
+    over ``n_frames`` frames from ``start_frame`` (JAX
+    ``results.py:236-261``)."""
+    def to_mask(contacts):
+        m = np.zeros((n_frames, len(FOOT_NAMES)), bool)
+        for i, name in enumerate(FOOT_NAMES):
+            for s, e, *_ in contacts.get(name) or ():
+                m[max(s - start_frame, 0):min(e - start_frame + 1,
+                                              n_frames), i] = True
+        return m
+
+    p, lab = to_mask(pred), to_mask(labeled)
+    tp, fp, fn = np.sum(p & lab), np.sum(p & ~lab), np.sum(~p & lab)
+    precision = tp / (tp + fp) if tp + fp else 0.0
+    recall = tp / (tp + fn) if tp + fn else 0.0
+    f1 = (2 * precision * recall / (precision + recall)
+          if precision + recall else 0.0)
+    return {"precision": float(precision), "recall": float(recall),
+            "f1": float(f1), "tp": int(tp), "fp": int(fp), "fn": int(fn)}
+
+
+def determine_dlc_performance(dlc_dir: str, hand_labeled_dir: str,
+                              dlc_thresh: float = 0.5) -> Dict[str, float]:
+    """Pixel statistics of the DLC detections in ``dlc_dir`` above
+    ``dlc_thresh`` against the hand labels in ``hand_labeled_dir`` (both
+    CSV tables, ``data/io.load_dlc_points``) over their common frames (JAX
+    ``results.py:264-281``)."""
+    xy_p, lik_p, _ = dio.load_dlc_points(dlc_dir)
+    xy_g, lik_g, _ = dio.load_dlc_points(hand_labeled_dir)
+    n = min(len(xy_p), len(xy_g))
+    pred = np.where((lik_p[:n] > dlc_thresh)[..., None], xy_p[:n], np.nan)
+    gt = np.where((lik_g[:n] > 0)[..., None], xy_g[:n], np.nan)
+    resid = (gt - pred).reshape(-1)
+    resid = resid[np.isfinite(resid)]
+    if resid.size == 0:
+        return {"rmse_px": float("nan"), "n": 0}
+    return {"rmse_px": float(np.sqrt(np.mean(resid**2))),
+            "mad_px": float(np.median(np.abs(resid - np.median(resid)))),
+            "mean_px": float(resid.mean()), "std_px": float(resid.std()),
+            "n": int(resid.size)}
+
+
+def plot_cost_functions(out_path: str) -> bool:
+    """The redescending, Cauchy (c = 7), Fair (c = 7) and quadratic losses
+    over weighted residuals 0-30 to ``out_path`` (JAX
+    ``results.py:284-303``). Returns False, writing nothing, without
+    matplotlib."""
+    from ..ops import losses
+
+    plt = _pyplot()
+    if plt is None:
+        return False
+    e = torch.linspace(0, 30, 600, dtype=torch.float64)
+    fig = plt.figure(figsize=(10, 6), dpi=60)
+    plt.plot(e, losses.redescending(e).numpy(), label="redescending")
+    plt.plot(e, losses.cauchy(e, 7.0).numpy(), label="cauchy c=7")
+    plt.plot(e, losses.fair(e, 7.0).numpy(), label="fair c=7")
+    plt.plot(e, (0.5 * e * e).numpy(), label="quadratic", ls="--")
+    plt.ylim(0, 80)
+    plt.xlabel("weighted residual")
+    plt.ylabel("cost")
+    plt.legend()
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return True
+
+
+def plot_eom_error(fte_pickle_path: str, subject, out_path: str,
+                   device: DeviceLike = None) -> np.ndarray:
+    """Per-frame norm (body weights) of the EOM residual of a saved
+    solution from frame 2 on with no contact force (``eom.eom_residual`` on
+    its q, dq, ddq, in float64 on ``device``, the card by default), and its
+    plot to ``out_path`` (JAX ``results.py:306-332``); a line names the
+    plot when matplotlib is not installed. Returns the norms."""
+    from ..dynamics import eom as dyn
+
+    dev = resolve_device(device)
+    d = dio.load_fte_pickle(fte_pickle_path)
+    t = lambda k: torch.as_tensor(np.asarray(d[k])[2:], dtype=torch.float64,
+                                  device=dev)
+    q = t("q")
+    r = dyn.eom_residual(q, t("dq"), t("ddq"),
+                         q.new_zeros(q.shape[0], 4),
+                         q.new_zeros(q.shape[0], 4, 4), subject)
+    res = np.linalg.norm(r.cpu().numpy() / (subject.total_mass
+                                            * dyn.GRAVITY), axis=1)
+    plt = _pyplot()
+    if plt is None:
+        _skipped([out_path])
+        return res
+    fig = plt.figure(figsize=(10, 5), dpi=60)
+    plt.plot(res)
+    plt.xlabel("frame")
+    plt.ylabel("|EOM residual| (body-weight units, zero contact)")
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return res
+
+
+def get_power_values(q: np.ndarray, tau: np.ndarray, fps: float,
+                     force_scale: float = 1.0) -> Dict[str, np.ndarray]:
+    """Mechanical power of each torque component, tau_i times the relative
+    joint rate it acts on (``TORQUE_MAP.B[:, i]`` . dq, dq by
+    ``np.gradient`` at ``fps``), times ``force_scale``, grouped per motor
+    (JAX ``results.py:335-350``): {motor: (N, components)}."""
+    q = np.asarray(q, float)
+    tau = np.asarray(tau, float)
+    rel_vel = (np.gradient(q, axis=0) * fps) @ TORQUE_MAP.B
+    p_cols = tau * rel_vel[: len(tau)] * force_scale
+    out: Dict[str, List[np.ndarray]] = {}
+    for i, name in enumerate(TORQUE_MAP.names):
+        out.setdefault(name.rsplit(":", 1)[0], []).append(p_cols[:, i])
+    return {k: np.stack(v, axis=1) for k, v in out.items()}
+
+
+def plot_power_values(q: np.ndarray, tau: np.ndarray, fps: float,
+                      out_path: str, force_scale: float = 1.0
+                      ) -> Dict[str, float]:
+    """The total power of :func:`get_power_values` against time, with its
+    mean, to ``out_path`` (JAX ``results.py:353-379``; W/kg when tau is in
+    body weights and ``force_scale`` is g); a line names the plot when
+    matplotlib is not installed. Returns its peak and mean."""
+    power = get_power_values(q, tau, fps, force_scale)
+    total = np.sum(np.hstack(list(power.values())), axis=1)
+    stats = {"peak": float(np.max(total)), "mean": float(np.mean(total))}
+    plt = _pyplot()
+    if plt is None:
+        _skipped([out_path])
+        return stats
+    t = np.arange(len(total)) / fps
+    fig = plt.figure(figsize=(16, 9), dpi=60)
+    plt.plot(t, total, color="#36454f")
+    plt.plot(t, np.full_like(total, total.mean()), color="#ff7f0e",
+             linestyle="--", label="Mean")
+    plt.title(f"Total power output of cheetah.\nPeak power: "
+              f"{int(np.max(total))} W/kg, Avg power: "
+              f"{int(np.mean(total))} W/kg")
+    plt.ylabel("Total power (W/kg)")
+    plt.xlabel("Time (s)")
+    plt.legend()
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return stats
+
+
+def torque_error(tau1: np.ndarray, tau2: np.ndarray):
+    """Per-column torque RMSE over the common frames of two (N, k)
+    torque tables (JAX ``results.py:418-427``): (RMSE (k,), tau1, tau2 cut
+    to the common frames)."""
+    tau1, tau2 = np.asarray(tau1), np.asarray(tau2)
+    n = min(len(tau1), len(tau2))
+    tau1, tau2 = tau1[:n], tau2[:n]
+    return np.linalg.norm(tau1 - tau2, axis=0) / np.sqrt(n), tau1, tau2
+
+
+def align_error_trajectories(trajectories: List[np.ndarray]):
+    """Error curves of different lengths resampled linearly onto the
+    longest one's length, and their band statistics (JAX
+    ``results.py:430-445``): (length, the resampled curves, mean, std,
+    median, lower and upper quartile, median absolute deviation)."""
+    max_length = max(len(t) for t in trajectories)
+    target = np.linspace(0.0, 1.0, max_length)
+    interp = np.stack([
+        np.interp(target, np.linspace(0.0, 1.0, len(t)), np.asarray(t))
+        for t in trajectories])
+    med = np.median(interp, axis=0)
+    return (max_length, interp, np.mean(interp, axis=0),
+            np.std(interp, axis=0), med,
+            np.quantile(interp, 0.25, axis=0),
+            np.quantile(interp, 0.75, axis=0),
+            np.median(np.abs(interp - med), axis=0))
+
+
+def align_error_and_plot(x: List[np.ndarray], y: List[np.ndarray],
+                         z: List[np.ndarray], file_name: str) -> bool:
+    """The median error over time with its MAD band of the default (``x``),
+    data-driven (``y``) and physics-based (``z``) curves, each set aligned
+    by :func:`align_error_trajectories`, to ``file_name`` (JAX
+    ``results.py:448-469``). Returns False, writing nothing, without
+    matplotlib."""
+    stats = [align_error_trajectories(t) for t in (x, y, z)]
+    assert stats[0][0] == stats[1][0] == stats[2][0]
+    plt = _pyplot()
+    if plt is None:
+        return False
+    fig = plt.figure(figsize=(16, 12), dpi=60)
+    for (n, _, _, _, med, _, _, mad), label, color in zip(
+            stats, ("Default", "Data-driven", "Physics-based"),
+            ("#36454f", "#2e8b57", "#ff7f0e")):
+        plt.plot(med, color=color, label=label)
+        plt.fill_between(range(n), med - mad, med + mad, color=color,
+                         alpha=0.15)
+    plt.title("MPE over time")
+    plt.xlabel("Frames")
+    plt.ylabel("Error (mm)")
+    plt.legend()
+    fig.savefig(file_name, bbox_inches="tight")
+    plt.close(fig)
+    return True
+
+
+def save_error_dists(px_errors: Dict[int, np.ndarray],
+                     output_dir: str) -> Tuple[float, float]:
+    """The pooled per-camera pixel errors' mean and median, saved with them
+    as ``reprojection.pickle`` in ``output_dir``, and their histograms
+    ``overall_error_hist.pdf`` and ``cams_error_hist.pdf`` there (JAX
+    ``results.py:472-510``; a line names the PDFs when matplotlib is not
+    installed). Returns (mean, median)."""
+    import pickle
+
+    distances = np.concatenate([np.asarray(v, float).ravel()
+                                for v in px_errors.values()])
+    mean_error = float(np.mean(distances))
+    med_error = float(np.median(distances))
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "reprojection.pickle"), "wb") as f:
+        pickle.dump({"error": distances, "mean_error": mean_error,
+                     "med_error": med_error}, f)
+    names = [os.path.join(output_dir, n)
+             for n in ("overall_error_hist.pdf", "cams_error_hist.pdf")]
+    plt = _pyplot()
+    if plt is None:
+        _skipped(names)
+        return mean_error, med_error
+    fig = plt.figure()
+    ax = fig.add_subplot(1, 1, 1)
+    ax.hist(distances, bins=50)
+    ax.set_title(f"Error Overview (N={len(distances)}, "
+                 f"mean={mean_error:.3f}, med={med_error:.3f})")
+    ax.set_xlabel("Error [px]")
+    ax.set_ylabel("Frequency")
+    fig.savefig(names[0])
+    plt.close(fig)
+    fig = plt.figure()
+    ax = fig.add_subplot(1, 1, 1)
+    ax.hist([np.asarray(v, float).ravel() for v in px_errors.values()],
+            bins=10, density=True, histtype="bar")
+    ax.legend([f"cam{int(k) + 1} (N={len(np.asarray(v).ravel())})"
+               for k, v in px_errors.items()])
+    ax.set_title("Reprojection Pixel Error")
+    ax.set_xlabel("Error [px]")
+    ax.set_ylabel("Frequency")
+    fig.savefig(names[1])
+    plt.close(fig)
+    return mean_error, med_error
+
+
+def plot_3d_pose(fte_pickle_path: str, pose_idx: int, subject,
+                 gmm_dataset: str, out_path: str, n_components: int = 5,
+                 device: DeviceLike = None) -> Tuple[float, float]:
+    """The pose prior's log-likelihood of frame ``pose_idx`` of a saved
+    solution and of a distorted copy (front body and neck pitch and roll
+    set to +-pi/6), under an ``n_components`` GMM fitted (seed 42) on the
+    22 relative joint angles of the CSV table ``gmm_dataset`` on ``device``
+    (the card by default); both skeletons, centred, drawn to ``out_path``
+    (JAX ``results.py:513-549``; a line names the plot when matplotlib is
+    not installed). Returns (ll solved, ll distorted). The JAX function
+    indexes the float that ``gmm.score`` returns and raises; here each
+    likelihood is ``score`` of its one pose."""
+    from ..priors import dataset as prior_ds
+    from ..priors import gmm as gmm_mod
+
+    dev = resolve_device(device)
+    d = dio.load_fte_pickle(fte_pickle_path)
+    q_orig = np.asarray(d["q"][pose_idx], np.float64)
+    pos1 = np.asarray(d["positions"][pose_idx])
+    q_bad = q_orig.copy()
+    q_bad[3:12:3] = np.pi / 6
+    q_bad[3:12:2] = -np.pi / 6
+    qt = torch.as_tensor(np.stack([q_orig, q_bad]), device=dev)
+    pos2 = sk.fk_markers(qt[1:], subject)[0].cpu().numpy()
+    x = sk.relative_pose(qt)[:, 6:].cpu().numpy()
+    model = gmm_mod.fit(prior_ds.load_pose_dataset(gmm_dataset).data[:, 6:28],
+                        n_components=n_components, seed=42, device=dev)
+    ll1 = gmm_mod.score(model, x[:1])
+    ll2 = gmm_mod.score(model, x[1:])
+    plt = _pyplot()
+    if plt is None:
+        _skipped([out_path])
+        return ll1, ll2
+    from . import visualize
+
+    fig = plt.figure(figsize=(6, 6))
+    ax = fig.add_subplot(1, 1, 1, projection="3d")
+    visualize._draw_pose(ax, pos1 - pos1.mean(axis=0, keepdims=True),
+                         "#36454f", f"solved (ll={ll1:.1f})")
+    visualize._draw_pose(ax, pos2 - pos2.mean(axis=0, keepdims=True),
+                         "#d62728", f"distorted (ll={ll2:.1f})")
+    ax.legend()
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return ll1, ll2
+
+
+def std_dev(predictions: np.ndarray, targets: np.ndarray) -> float:
+    """NaN-aware standard deviation of the residuals (JAX
+    ``results.py:552-556``)."""
+    return float(np.nanstd((np.asarray(predictions, float)
+                            - np.asarray(targets, float)).flatten()))
+
+
+def check_joint_estimation(root_dir: str, dir_prefix: str,
+                           cheetah: str = "shiraz", date: str = "2009_09_08",
+                           trial: str = "04") -> Dict[str, float]:
+    """A kinetic solution under ``root_dir`` against the one for the same
+    force-plate trial under ``dir_prefix`` (both
+    ``kinetic_dataset/<date>/<cheetah>/trial<trial>/fte_kinetic/
+    fte.pickle``): root-relative MPJPE (mm) and the torque RMSE over the
+    motors both hold, each aligned on its common frames and components
+    (JAX ``results.py:559-594``)."""
+    from . import metrics as metrics_mod
+
+    data_path = os.path.join("kinetic_dataset", date, cheetah,
+                             f"trial{trial}")
+    fte_gt = dio.load_fte_pickle(os.path.join(
+        dir_prefix, data_path, "fte_kinetic", "fte.pickle"))
+    fte = dio.load_fte_pickle(os.path.join(
+        root_dir, data_path, "fte_kinetic", "fte.pickle"))
+    per_joint, _, _ = metrics_mod.traj_error(fte_gt["positions"],
+                                             fte["positions"], centered=True)
+    diffs = []
+    for name in sorted(set(fte_gt["tau"]) & set(fte["tau"])):
+        a = np.asarray(fte_gt["tau"][name], float)
+        b = np.asarray(fte["tau"][name], float)
+        a = a.reshape(a.shape[0], -1)
+        b = b.reshape(b.shape[0], -1)
+        n, k = min(a.shape[0], b.shape[0]), min(a.shape[1], b.shape[1])
+        diffs.append((a[:n, :k] - b[:n, :k]).ravel())
+    tau_rmse = float(np.sqrt(np.nanmean(np.concatenate(diffs) ** 2))) \
+        if diffs else float("nan")
+    return {"mpjpe_mm": float(per_joint.mean()), "torque_rmse": tau_rmse}
+
+
+def animate_torque_plot(tau: Dict[str, np.ndarray], fps: float,
+                        out_path: str, force_scale: float = 1.0) -> bool:
+    """Each motor's summed torque (times ``force_scale``) as an animated
+    bar chart over the frames, written as a GIF to ``out_path`` (JAX
+    ``results.py:816-853``). Returns False, writing nothing, without
+    matplotlib."""
+    plt = _pyplot()
+    if plt is None:
+        return False
+    from matplotlib import animation
+
+    names = list(tau.keys())
+    arrs = [np.atleast_2d(np.asarray(tau[k], float).T).T * force_scale
+            for k in names]
+    n_frames = min(a.shape[0] for a in arrs)
+    totals = [a.sum(axis=1) for a in arrs]
+    vmax = max(float(np.nanmax(np.abs(t))) for t in totals)
+    if not np.isfinite(vmax) or vmax == 0.0:
+        vmax = 1.0
+    fig, ax = plt.subplots(figsize=(16, 9), dpi=50)
+    bars = ax.bar(range(len(names)), [t[0] for t in totals],
+                  color="#36454f")
+    ax.set_xticks(range(len(names)))
+    ax.set_xticklabels(names, rotation=45, ha="right", fontsize=7)
+    ax.set_ylim(-1.1 * vmax, 1.1 * vmax)
+    ax.set_ylabel("Torque")
+
+    def update(i):
+        for b, t in zip(bars, totals):
+            b.set_height(t[i])
+        ax.set_title(f"t = {i / fps:.3f} s")
+        return bars
+
+    anim = animation.FuncAnimation(fig, update, frames=n_frames, blit=False)
+    anim.save(out_path, writer=animation.PillowWriter(
+        fps=max(1, min(int(round(fps)), 30))))
+    plt.close(fig)
+    return True

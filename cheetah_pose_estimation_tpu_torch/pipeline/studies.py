@@ -1,9 +1,8 @@
-"""The studies of the dataset CLI: the hyper-parameter grid search, the
-prior ablations and the degradation sweep.
+"""The studies of the dataset CLI (the hyper-parameter grid search, the
+prior ablations and the degradation sweep) and the three response studies
+that no CLI flag reaches.
 
-Port of ``cheetah_pose_estimation_tpu/pipeline/studies.py``, except
-``run_deadband_sweep``, ``run_forced_vs_gated_bench`` and
-``run_physics_lever_sweep``, which no CLI flag reaches:
+Port of ``cheetah_pose_estimation_tpu/pipeline/studies.py``:
 
 * :func:`run_grid_search_batched` solves every (GMM components, AR window,
   lasso) configuration of the data-driven mode on every trial as one
@@ -25,6 +24,15 @@ Port of ``cheetah_pose_estimation_tpu/pipeline/studies.py``, except
   physics-based) monocular solves of the procedural bench trials across
   correlated DLC corruption levels, scored against the synthetic truth
   (``degradation_sweep.csv``).
+* :func:`run_forced_vs_gated_bench`: the data-driven mode's prior gate
+  against the prior forced on every trial, before and after the depth
+  anchor, on the procedural bench trials;
+  :func:`run_deadband_sweep` and :func:`run_physics_lever_sweep`: how far
+  the kinetic solve's deadbands, GRF cap, weights and schedule move the
+  physics stage off a shared kinematic warm start. Each kinetic
+  configuration is one batch over all trials (the JAX package's waves of 5
+  are a TPU memory workaround). Their JAX defaults write under
+  ``docs/artifacts/``; here ``out_csv=None`` writes nothing.
 
 The reconstruction studies score each solution against the multi-view
 solve saved under the output directory (``fte_kinematic/fte.pickle``); the
@@ -770,3 +778,340 @@ def model_selection_analysis(data_driven_dataset: Optional[str] = None,
         data_ops.save_pickle(os.path.join(out_dir, "grid_search.pickle"),
                              out)
     return out
+
+
+def _bench_trials(trajs):
+    """The monocular problems (numpy leaves) of the bench trajectories
+    ``trajs`` on camera 2, each rendered with its index as seed: (datas,
+    q0s, trials, fpss)."""
+    from . import bench_lib
+
+    datas, q0s, trials, fpss = [], [], [], []
+    for i, (q_gt, _, fps) in enumerate(trajs):
+        d, q0, tr = bench_lib.build_monocular_problem(q_gt, "acinoset", fps,
+                                                      seed=i)
+        datas.append(d)
+        q0s.append(q0)
+        trials.append(tr)
+        fpss.append(fps)
+    return datas, q0s, trials, fpss
+
+
+def _physics_warm_start(max_trials: int, n_frames: int, dtype, dev):
+    """The shared warm start of the two physics response sweeps: the
+    default-configuration kinematic multistart on the first ``max_trials``
+    bench trials, scored against the synthetic truth, and the physics
+    batch built from it with the ground heights estimated from the truth.
+    Returns (subject, trials, fpss, warm scores per trial, kinetic batch,
+    q_warm (B, N, 54))."""
+    from . import bench_lib
+    from . import contacts as contacts_mod
+
+    subject = params_mod.get_subject("acinoset")
+    datas, q0s, trials, fpss = _bench_trials(
+        bench_lib.load_reference_trajectories(max_trials))
+    bat, q0b = pbatch.pad_and_stack(datas, q0s, n_frames=n_frames,
+                                    dtype=dtype, device=dev)
+    fte = kin.KinematicFTE(kin.KinematicConfig(), subject)
+    qs64 = _np(pbatch.make_kinematic_multistart(fte)(q0b, bat).q)
+    warm = bench_lib.score_per_trial(qs64, trials, fpss, subject)
+    gphs = [contacts_mod.estimate_ground_height(tr.q_gt, subject)
+            for tr in trials]
+    kbat, q_warm_b = bench_lib.build_physics_batch(
+        datas, [qs64[i, :tr.q_gt.shape[0]] for i, tr in enumerate(trials)],
+        fpss, subject, n_frames=n_frames, dtype=dtype, ground_heights=gphs,
+        device=dev)
+    return subject, trials, fpss, warm, kbat, q_warm_b
+
+
+def _means(scores) -> Tuple[float, float, float]:
+    """Mean (MPE, MPJPE, CoM-vel RMSE) over per-trial scores."""
+    return tuple(float(np.mean([r[i] for r in scores])) for i in range(3))
+
+
+def run_deadband_sweep(base_deadbands: Tuple = (None, 0.1, 0.05, 0.02,
+                                                0.01, 0.0),
+                       grf_maxes: Tuple[float, ...] = (5.0, 3.0),
+                       n_frames: int = 64, max_trials: int = 10,
+                       out_dir: Optional[str] = None,
+                       verbose: bool = True,
+                       dtype: torch.dtype = torch.float32,
+                       device: DeviceLike = None,
+                       report: Optional[dict] = None) -> List[Dict]:
+    """The physics stage's CoM-velocity response to the base-translation
+    EOM deadband and the GRF cap (JAX ``studies.py:884-1002``), on
+    ``device`` (the card by default): one default-configuration kinematic
+    multistart on the first ``max_trials`` bench trials is the shared warm
+    start; then per (``grf_max``, ``base_deadband``) one kinetic solve of
+    every trial as one batch (the JAX package's waves of 5 are a TPU memory
+    workaround; the lanes are independent), scored against the synthetic
+    truth by CoM-velocity RMSE and MPE. ``base_deadband=None`` keeps the
+    relative EOM floor on the base rows (written ``"floor"``).
+
+    The scores are float64 host numpy (``bench_lib.score_per_trial``);
+    the JAX package scores in ``jnp`` on the host, float32 unless x64 is
+    on, ~1e-6 relative apart. Rows rounded as the JAX package rounds them
+    (CoM-vel to 1e-4 m/s, MPE to 0.1 mm), written to
+    ``out_dir/deadband_sweep.csv`` when ``out_dir`` is given. With
+    ``report``: the unrounded rows (``rows``), the warm start's per-trial
+    scores (``warm``) and each row's (``per_trial``)."""
+    from . import bench_lib
+
+    dev = resolve_device(device)
+    subject, trials, fpss, warm, kbat, q_warm_b = _physics_warm_start(
+        max_trials, n_frames, dtype, dev)
+    mpe_warm, _, cv_warm = _means(warm)
+    if verbose:
+        print(f"[deadband] warm start: CoMvel={cv_warm:.3f} "
+              f"MPE={mpe_warm:.0f}mm", flush=True)
+    rep = {} if report is None else report
+    rep["warm"] = warm
+    rows = []
+    for gm in grf_maxes:
+        for bd in base_deadbands:
+            kfte = kn.KineticFTE(kn.KineticConfig(
+                use_gmm=True, base_deadband=bd, grf_max=gm), subject)
+            sc = bench_lib.score_per_trial(
+                _np(kfte.make_solver()(q_warm_b, kbat).q), trials, fpss,
+                subject)
+            mpe_v, _, cv = _means(sc)
+            raw = dict(base_deadband=("floor" if bd is None else bd),
+                       grf_max=gm, comvel_rmse=cv, comvel_warm=cv_warm,
+                       comvel_improvement_pct=100.0 * (
+                           1.0 - cv / max(cv_warm, 1e-9)),
+                       mpe_mm=mpe_v, mpe_warm_mm=mpe_warm)
+            row = dict(raw, comvel_rmse=round(cv, 4),
+                       comvel_warm=round(cv_warm, 4),
+                       comvel_improvement_pct=round(
+                           raw["comvel_improvement_pct"], 1),
+                       mpe_mm=round(mpe_v, 1),
+                       mpe_warm_mm=round(mpe_warm, 1))
+            rows.append(row)
+            rep.setdefault("rows", []).append(raw)
+            rep.setdefault("per_trial", []).append(sc)
+            if verbose:
+                print(f"[deadband] bd={row['base_deadband']} grf_max={gm}: "
+                      f"CoMvel={cv:.3f} ({row['comvel_improvement_pct']}%) "
+                      f"MPE={row['mpe_mm']}mm", flush=True)
+    if out_dir:
+        _write_csv(out_dir, "deadband_sweep.csv", rows)
+    return rows
+
+
+LEVER_VARIANTS = {
+    "production": dict(),
+    "eom_weight_x10": dict(eom_weight=1e5),
+    "deadband_1.0": dict(eom_deadband=1.0),
+    "deadband_0.5": dict(eom_deadband=0.5),
+    "smooth_x3": dict(smooth_weight_scale=0.3),
+    "smooth_0": dict(smooth_weight_scale=0.0),
+    "guard_off": dict(meas_guard=0.0),
+    "long_stages": dict(_stages=((3.0, 60), (1.7, 60), (1.0, 200))),
+    "lam0_0.5": dict(_lam0=0.5),
+    "perturbed_warm": dict(_perturb=0.02),
+}
+LEVER_STAGES = ((3.0, 40), (1.7, 40), (1.0, 100))
+
+
+def run_physics_lever_sweep(n_frames: int = 64, max_trials: int = 10,
+                            out_csv: Optional[str] = None,
+                            variants: Optional[Dict[str, Dict]] = None,
+                            verbose: bool = True,
+                            dtype: torch.dtype = torch.float32,
+                            device: DeviceLike = None,
+                            report: Optional[dict] = None) -> List[Dict]:
+    """Which kinetic-solver levers move the physics stage off its warm
+    start (JAX ``studies.py:1206-1325``), on ``device`` (the card by
+    default). Per variant of ``variants`` (``LEVER_VARIANTS`` by default:
+    ``KineticConfig`` overrides, and the private ``_stages`` (the LM
+    schedule, ``LEVER_STAGES`` otherwise), ``_lam0`` (initial damping, 10)
+    and ``_perturb`` (the warm start moved by ``_perturb`` x
+    ``default_rng(0).standard_normal`` over the whole padded batch, cast to
+    the batch's dtype)) one kinetic solve of every trial as one batch from
+    the shared warm start of :func:`run_deadband_sweep`, scored against the
+    synthetic truth: MPE, MPJPE, CoM-vel RMSE, their change from the warm
+    start, and the mean accepted LM steps per lane (``LMState.n_accepted``).
+
+    Rows rounded as the JAX package rounds them. The JAX package writes
+    ``docs/artifacts/physics_lever_sweep.csv`` by default; here
+    ``out_csv=None`` (the default) writes nothing. With ``report``: the
+    unrounded rows (``rows``), the warm start's per-trial scores
+    (``warm``), each row's (``per_trial``) and its accepted steps per lane
+    (``accepted``)."""
+    from . import bench_lib
+
+    dev = resolve_device(device)
+    subject, trials, fpss, warm, kbat, q_warm_b = _physics_warm_start(
+        max_trials, n_frames, dtype, dev)
+    w_mpe, w_mpjpe, w_cv = _means(warm)
+    if verbose:
+        print(f"[levers] kinematic warm start: MPE={w_mpe:.1f} "
+              f"MPJPE={w_mpjpe:.1f} CoMvel={w_cv:.3f}", flush=True)
+    rep = {} if report is None else report
+    rep["warm"] = warm
+    rows = []
+    for label, ov in (LEVER_VARIANTS if variants is None
+                      else variants).items():
+        ov = dict(ov)
+        stages = ov.pop("_stages", LEVER_STAGES)
+        lam0 = ov.pop("_lam0", 10.0)
+        perturb = ov.pop("_perturb", 0.0)
+        kfte = kn.KineticFTE(kn.KineticConfig(use_gmm=True, **ov), subject)
+        qw = q_warm_b
+        if perturb > 0.0:
+            noise = perturb * np.random.default_rng(0).standard_normal(
+                tuple(q_warm_b.shape))
+            qw = q_warm_b + torch.as_tensor(noise, dtype=q_warm_b.dtype,
+                                            device=dev)
+        st = kfte.make_solver(stages=stages, lam0=lam0)(qw, kbat)
+        its = _np(st.n_accepted)
+        sc = bench_lib.score_per_trial(_np(st.q), trials, fpss, subject)
+        mpe_v, mpjpe_v, cv_v = _means(sc)
+        raw = dict(variant=label, mpe_mm=mpe_v, mpjpe_mm=mpjpe_v,
+                   comvel_rmse=cv_v, dmpe_mm=mpe_v - w_mpe,
+                   dmpjpe_mm=mpjpe_v - w_mpjpe,
+                   comvel_improvement_pct=100.0 * (
+                       1.0 - cv_v / max(w_cv, 1e-9)),
+                   mean_accepted_iters=float(np.mean(its)))
+        row = dict(variant=label, mpe_mm=round(mpe_v, 2),
+                   mpjpe_mm=round(mpjpe_v, 2), comvel_rmse=round(cv_v, 4),
+                   dmpe_mm=round(raw["dmpe_mm"], 2),
+                   dmpjpe_mm=round(raw["dmpjpe_mm"], 2),
+                   comvel_improvement_pct=round(
+                       raw["comvel_improvement_pct"], 1),
+                   mean_accepted_iters=round(raw["mean_accepted_iters"], 1))
+        rows.append(row)
+        rep.setdefault("rows", []).append(raw)
+        rep.setdefault("per_trial", []).append(sc)
+        rep.setdefault("accepted", []).append(its.tolist())
+        if verbose:
+            print(f"[levers] {label}: MPE={row['mpe_mm']} "
+                  f"dMPJPE={row['dmpjpe_mm']} CoMvel={row['comvel_rmse']} "
+                  f"({row['comvel_improvement_pct']}%) "
+                  f"it={row['mean_accepted_iters']}", flush=True)
+    if out_csv:
+        _write_csv(os.path.dirname(out_csv), os.path.basename(out_csv),
+                   rows)
+    return rows
+
+
+FVG_VARIANTS = ("default", "chain", "dd_gated", "dd_forced")
+
+
+def run_forced_vs_gated_bench(out_csv: Optional[str] = None,
+                              n_frames: int = 64,
+                              prior_guard_ratio: float = 1.10,
+                              dtype: torch.dtype = torch.float32,
+                              chain_cfg_overrides: Optional[Dict] = None,
+                              verbose: bool = True,
+                              device: DeviceLike = None,
+                              report: Optional[dict] = None) -> List[Dict]:
+    """Per-trial evidence for the data-driven mode's prior gate (JAX
+    ``studies.py:1049-1203``), on ``device`` (the card by default): for
+    each of the 10 bench trials (``bench_lib.reference_trial_paths(10)``),
+    scored against the synthetic truth,
+
+      default    the prior-free heading multistart;
+      chain      the GMM chain from it, ungated;
+      dd_gated   the data-driven solve (AR anchors and adaptive weights from
+                 the gated bootstrap, GMM + AR) where the gate at
+                 ``prior_guard_ratio`` accepts the chain, the prior-free
+                 solution where it rejects it;
+      dd_forced  the same with the gate open on every trial;
+
+    each before and after ``bench_lib.make_anchor_polish`` (``_anch``), with
+    the chain's prior-free cost over the free solve's (``ratio``) and the
+    gate. The priors are the 5-component GMM and the window-4 lasso AR
+    model of the default training table
+    (``estimator._default_data_driven_dataset``). With a base anchor in
+    ``chain_cfg_overrides`` the prior-constrained solves' base pose is
+    pinned to the free solve (``KinematicData.base_ref``).
+
+    Rows with the JAX package's columns; the JAX package writes
+    ``docs/artifacts/forced_vs_gated.csv`` by default, here ``out_csv=None``
+    (the default) writes nothing. With ``report``: both costs
+    (``c_free``, ``c_chain``) and per variant the anchor's per-trial shift
+    and acceptance (``anchor``)."""
+    from . import bench_lib
+    from . import contacts as cmod
+
+    dev = resolve_device(device)
+    subject = params_mod.get_subject("acinoset")
+    names = bench_lib.reference_trial_paths(10)
+    datas, q0s, trials, fpss = _bench_trials(
+        bench_lib.load_reference_trajectories(10))
+    dset = est_mod._default_data_driven_dataset()
+    gp = gmm_mod.to_solver_prior(_train_gmm(dset, 5, dev))
+    mm = armodel.train_motion_model(dset, window_size=4, lasso=True,
+                                    device=dev,
+                                    cache_dir=data_ops.prior_cache_dir(dset))
+    bat_dd, q0b = pbatch.pad_and_stack([d._replace(gmm=gp) for d in datas],
+                                       q0s, n_frames=n_frames, dtype=dtype,
+                                       device=dev)
+    B = q0b.shape[0]
+    gphs = [cmod.estimate_ground_height(tr.q_gt, subject) for tr in trials]
+    tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    free = kin.KinematicFTE(kin.KinematicConfig(fisheye=True, robust=True),
+                            subject)
+    q_free = pbatch.make_kinematic_multistart(free)(q0b, bat_dd).q
+    overrides = dict(chain_cfg_overrides or {})
+    if overrides.get("base_anchor_trans", 0.0) > 0.0 \
+            or overrides.get("base_anchor_rot", 0.0) > 0.0:
+        bat_dd = bat_dd._replace(base_ref=q_free[:, :, :6])
+    chain = kin.KinematicFTE(kin.KinematicConfig(
+        fisheye=True, robust=True, use_gmm=True, **overrides), subject)
+    q_chain = chain.make_solver()(q_free, bat_dd).q
+    c_free = _np(free._cost(q_free, bat_dd, 1.0))
+    c_chain = _np(free._cost(q_chain, bat_dd, 1.0))
+    ratio = c_chain / c_free
+    gate = prior_gate_accept(c_chain, c_free, prior_guard_ratio)
+    if verbose:
+        print(f"[fvg] gate accepts {int(gate.sum())}/{B}", flush=True)
+    vdd = kin.KinematicFTE(kin.KinematicConfig(
+        fisheye=True, robust=True, use_gmm=True, use_ar=True, **overrides),
+        subject).make_solver()
+    fv = _np(bat_dd.frame_valid)
+
+    def dd_solve(accept_mask):
+        """The data-driven machinery with the given per-trial gate outcome:
+        the bootstrap picked per trial, AR anchors and adaptive weights
+        from it, the GMM + AR solve, rejected trials back to the prior-free
+        solution."""
+        ok = torch.as_tensor(accept_mask, device=dev)[:, None, None]
+        qb = torch.where(ok, q_chain, q_free)
+        yp, vl, xs = batched_mod._anchors(mm, _np(qb), fv)
+        ws = np.stack([armodel.adaptive_motion_weights(mm, yp[i], xs[i],
+                                                       vl[i])
+                       for i in range(B)])
+        bat = bat_dd._replace(ar=kin.ARAnchor(tens(yp), tens(ws), tens(vl)))
+        return torch.where(ok, vdd(qb, bat).q, q_free), bat
+
+    q_gated, bat_g = dd_solve(gate)
+    q_forced, bat_f = dd_solve(np.ones(B, bool))
+    anchor = bench_lib.make_anchor_polish(subject, dtype, dev)
+    variants = {"default": (q_free, bat_dd), "chain": (q_chain, bat_dd),
+                "dd_gated": (q_gated, bat_g), "dd_forced": (q_forced, bat_f)}
+    rep = {} if report is None else report
+    rep.update(c_free=c_free.tolist(), c_chain=c_chain.tolist(), anchor={})
+    rows = [dict(trial=names[i], ratio=float(ratio[i]), gate=bool(gate[i]))
+            for i in range(B)]
+    for label, (q, bat) in variants.items():
+        pre = bench_lib.score_per_trial(_np(q), trials, fpss, subject)
+        rep["anchor"][label] = {}
+        q_a = anchor(q, bat, trials, fpss, gphs, report=rep["anchor"][label])
+        post = bench_lib.score_per_trial(_np(q_a), trials, fpss, subject)
+        for i in range(B):
+            for j, m in enumerate(("mpe", "mpjpe", "cvr")):
+                rows[i][f"{m}_{label}"] = pre[i][j]
+            for j, m in enumerate(("mpe", "mpjpe", "cvr")):
+                rows[i][f"{m}_{label}_anch"] = post[i][j]
+        if verbose:
+            print(f"[fvg] {label}: MPE {np.mean([r[0] for r in pre]):.1f} "
+                  f"-> anch {np.mean([r[0] for r in post]):.1f}  "
+                  f"CoMvel {np.mean([r[2] for r in pre]):.3f} "
+                  f"-> {np.mean([r[2] for r in post]):.3f}", flush=True)
+    if out_csv:
+        _write_csv(os.path.dirname(out_csv), os.path.basename(out_csv),
+                   rows)
+    return rows

@@ -178,7 +178,8 @@ Phases (any failure exits nonzero):
    (``run_dataset.main --run_grid_search --run_data_driven_ablation_study
    --run_physics_based_ablation_study --batched --trials 2``: the
    24-configuration grid over two trials as one 48-lane batch, the model
-   selection at its defaults, both ablations, the figures), then the
+   selection at its defaults, both ablations, the physics ablation's LM
+   schedule cut to 30 steps, the figures), then the
    degradation sweep with its physics column (rate 0, 4
    bench trials); per study the wall, LM steps and launches per shape,
    each CSV's rows, the plots written or skipped. Checks: every CSV and
@@ -215,19 +216,46 @@ Phases (any failure exits nonzero):
    (``phase_dynamics``) against the JAX runs of
    ``tests/data/jax_dynamics_f64.json``: the kernel on the stop task's
    first normal system (1x40, lam = 1e-2, rel error <= 7e-4);
-   ``tasks.high_speed_stop()`` and ``periodic_gallop()`` at the JAX
-   defaults (the kernel at 1x40 and 1x44 on every LM step, float32): the
-   JAX test's bars that JAX float64 meets, each score within 2 % of JAX
-   float64 (printed, not gated, where JAX float32 misses its float64 by
-   more, ``task_gate``: the gallop's 200-step cost), the gallop's cost
-   after its first 20 steps within 2 %; the drop test (upright, base
-   height, feet, the base path within 1e-4 m of JAX float64's to the
-   first contact) and the
+   ``tasks.high_speed_stop()`` at the JAX defaults and
+   ``periodic_gallop()`` at them cut to its first 20 LM steps (the kernel
+   at 1x40 and 1x44 on every LM step, float32): the JAX test's bars that
+   JAX float64 meets, each score (the gallop's: cost, stride, speed,
+   periodicity, EOM slack) within 2 % of JAX float64 at the same depth
+   (printed, not gated, where JAX float32 misses its float64 by more,
+   ``task_gate``); the drop test cut to 0.1 s
+   (upright, base height, feet, the base path within 1e-4 m of JAX
+   float64's to the first contact, the state at 0.1 s within 1e-3 m of
+   JAX float64's record there) and the
    ballistic throw (CoM within 2e-3 m of free fall), ms per RK4 step and
    launches per derivative; ``pca.fit`` and the PCA-space AR model (axes
    1e-8, coefficients 1e-6 of JAX's); phase 7's 70-lane line-scan, three
    trials pushed 0.3 m back, with and without ``finish_stages``
    (unaccepted lanes bit for bit, finished prior-free cost <= unfinished).
+17. responses — the three response studies (``phase_responses``) against
+   ``tests/data/jax_responses_f64.json``, priors from phase 9's pose
+   tables: ``run_forced_vs_gated_bench`` at its size (10 procedural bench
+   trials x 64 frames: the kernel at 30x64 and 10x64): JAX's columns, 10
+   rows, finite values, each ratio the chain's prior-free cost over the
+   free solve's, each gate ``prior_gate_accept`` of them, a rejected
+   trial's dd_gated scores equal to default's, an unaccepted anchor's
+   scores unchanged; each variant's mean MPE, MPJPE and CoM-velocity
+   before and after the anchor within 2 % (CoM-vel 5 %) of JAX float32's
+   as it is or with witnessed trials set aside (``fvg_agree``), the gap
+   to JAX float64 and the acceptance counts printed.
+   ``run_deadband_sweep`` (the floor and 0.05, GRF cap 5) and
+   ``run_physics_lever_sweep`` (production and one variant with every
+   override route) at 2 trials x 48 frames (2x48 and 6x48): JAX's
+   columns; the warm start's MPE and CoM-velocity (2 %) and each row (2 %,
+   CoM-vel 5 %) within their bars of JAX float64 unless JAX float32
+   misses its float64 by more (``sweep_gate``; a row where it misses on
+   any column is printed whole), a value that either JAX run did not
+   record printed; the accepted LM
+   steps printed beside JAX's; the kernel on the first kinetic system
+   (lam = 1e-2, rel error <= 7e-4). Then the results layer on phases 9
+   and 11's trees (``results_layer``): ``compare_traj_error``,
+   ``check_joint_estimation`` and ``plot_eom_error`` of the force-plate
+   solution against itself (MPJPE 0, torque RMSE 0), the power and
+   torque errors, the plots False without matplotlib.
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -2299,6 +2327,7 @@ def phase_kinetic(dev, results, ref):
     log(f"# kinetic profile: GRF re-estimation {p}, {PROFILE_STEPS}-step "
         f"window {prof}")
     out["profile_kinetic"] = prof
+    out["tree"] = {"out": odir, "trials": paths}
     results["kinetic"] = out
     return by_shape, worst_rel, worst_abs
 
@@ -2870,6 +2899,11 @@ def phase_analysis(dev, results, ref, root):
 STUDY_TRIALS = 2          # jules flick2 and flick1: one subject group
 # the sweep's rate 8 had no JAX reference (its rows were printed only)
 # and is cut for the smoke's time limit
+# the physics ablation's LM schedule (the smoke's time limit): 30 steps a
+# configuration instead of the default 180; no JAX run of the ablation was
+# recorded at any depth (tests/data/jax_studies_f64.json), so its rows are
+# printed and its form gated at either depth
+STUDY_PHYSICS_STAGES = ((3.0, 10), (1.0, 20))
 SWEEP_RATES = (0.0,)
 SWEEP_TRIALS = 4
 # each study CSV: its name, the JAX package's columns (the rows it builds:
@@ -3012,13 +3046,29 @@ def study_rows_vs_jax(name, rows, ref, key):
             + ("" if any(runs.values()) else " (no JAX run recorded)"))
 
 
+@contextlib.contextmanager
+def kinetic_stages(stages):
+    """``KineticFTE.make_solver``'s default schedule is ``stages`` inside
+    the block."""
+    from cheetah_pose_estimation_tpu_torch.solver import kinetic as kn
+
+    saved = kn.KineticFTE.make_solver.__defaults__
+    kn.KineticFTE.make_solver.__defaults__ = (stages,) + saved[1:]
+    try:
+        yield
+    finally:
+        kn.KineticFTE.make_solver.__defaults__ = saved
+
+
 def phase_studies(dev, results, ref, root, dset, odir):
     """The study flags on phase 9's tree and output directory:
     ``run_dataset.main(["--run_grid_search",
-    "--run_data_driven_ablation_study", "--run_physics_based_ablation_study",
-    "--batched", "--trials", "2", ...])`` (the 24-configuration grid over the
-    first two trials as one 48-lane batch, ``model_selection_analysis`` at
-    its defaults, both ablations, the figures), then
+    "--run_data_driven_ablation_study", "--batched", "--trials", "2",
+    ...])`` (the 24-configuration grid over the first two trials as one
+    48-lane batch, ``model_selection_analysis`` at its defaults, the
+    data-driven ablation, the figures), ``run_dataset.main(
+    ["--run_physics_based_ablation_study", ...])`` with the kinetic
+    schedule cut to ``STUDY_PHYSICS_STAGES``, then
     ``studies.run_degradation_sweep(rates=SWEEP_RATES,
     max_trials=SWEEP_TRIALS, include_physics=True)``; per study the wall,
     LM steps and launches per shape. Gate: every CSV and
@@ -3055,10 +3105,14 @@ def phase_studies(dev, results, ref, root, dset, odir):
     t0 = time.perf_counter()
     with plain_solves_counted() as plain, first_systems(B_grid) as grid_in:
         run_dataset.main(["--run_grid_search",
-                          "--run_data_driven_ablation_study",
-                          "--run_physics_based_ablation_study", "--batched",
+                          "--run_data_driven_ablation_study", "--batched",
                           "--trials", str(STUDY_TRIALS), "--root_dir", root,
                           "--out_dir_prefix", odir], report=report)
+        with kinetic_stages(STUDY_PHYSICS_STAGES):
+            run_dataset.main(["--run_physics_based_ablation_study",
+                              "--batched", "--trials", str(STUDY_TRIALS),
+                              "--root_dir", root, "--out_dir_prefix", odir],
+                             report=report)
         sweep_dir = tempfile.mkdtemp(prefix="sweep_")
         sweep_rep = {}
         rows_sweep, tr = run_dataset._timed(
@@ -3494,6 +3548,11 @@ def options_positions(q, subject_name):
 
 TOL_TASK = 0.02          # task scores against JAX (sweep_gate's bar)
 TOL_DROP = 1e-4          # drop-test base path to the first contact, metres
+TOL_DROP_STATE = 1e-3    # drop-test base height and feet at the cut, metres
+# the drop test's depth: 0.1 s of the JAX reference's 0.6 s (the smoke's
+# time limit): the fall, the first contact at 0.048 s and the landing; the
+# reference recorded its state there
+DROP_DURATION = 0.1
 TOL_THROW = 2e-3         # CoM free fall, metres (tests/test_simulate.py)
 DYNAMICS_SHAPES = ((1, 40), (1, 44))
 # the line-scan finish on phase 7's scan: two stages at the judge's own
@@ -3504,19 +3563,21 @@ DYNAMICS_SHAPES = ((1, 40), (1, 44))
 LINESCAN_FINISH = ((1.0, 30), (1.0, 30))
 LINESCAN_PUSHED = (0, 3, 6)
 LINESCAN_PUSH_M = 0.3
-# the gallop's cost after its 200 steps does not reproduce in float32; its
-# first EARLY_STEPS steps do (tests/data/jax_dynamics_reference.py)
+# the gallop's depth: its first EARLY_STEPS LM steps of the JAX defaults'
+# 200 (the smoke's time limit); its cost after 200 steps does not reproduce
+# in float32, after 20 it does, and JAX recorded both depths
+# (tests/data/jax_dynamics_reference.py)
 EARLY_STEPS = 20
 TASK_SCORES = {"stop": ("cost", "stop_distance", "final_speed"),
                "gallop": ("cost", "stride_length", "avg_speed",
-                          "periodicity_error")}
+                          "periodicity_error", "eom_rms_bw")}
 
 
 def task_gate(port, jax_f64, jax_f32, tol=TOL_TASK):
     """Agreement of one task score of the port's float32 run with JAX
     float64's: within ``tol`` of it, either way. Where JAX float32 itself
     misses its float64 by more than ``tol`` (the score does not reproduce
-    in float32: the gallop's cost after 200 unconverged steps), the value
+    in float32: the gallop's cost after its 200 unconverged steps), the value
     is printed beside both and not gated (``sweep_gate``'s rule)."""
     rel = (port - jax_f64) / abs(jax_f64)
     f32 = (jax_f32 - jax_f64) / abs(jax_f64)
@@ -3598,17 +3659,19 @@ def phase_dynamics(dev, results, ref, dd_scan):
 
     * the kernel on the stop task's first normal system (lam = 1e-2)
       against the plain version in float64, rel error <= 7e-4;
-    * ``tasks.high_speed_stop()`` and ``periodic_gallop()`` at the JAX
-      defaults (1x40 and 1x44, 200 LM steps at most, float32): the bars of
-      the JAX package's own test that JAX float64 meets (the rest printed),
-      and each score within 2 % of JAX float64, printed and not gated
-      where JAX float32 misses its float64 by more (``task_gate``: the
-      gallop's cost after its 200 unconverged steps); the gallop's first
-      ``EARLY_STEPS`` steps: its cost and EOM slack within 2 % of JAX
-      float64's, which float32 reproduces there;
-    * ``simulate.drop_test(initial_height=0.8, duration=0.6)``: upright,
-      base height in (0.2, 0.8) m, lowest foot below 0.1 m, the base path
-      within 1e-4 m of JAX float64's up to JAX's first foot contact; the
+    * ``tasks.high_speed_stop()`` at the JAX defaults (1x40, 200 LM steps
+      at most, float32) and ``periodic_gallop()`` at them cut to its first
+      ``EARLY_STEPS`` steps (1x44): the bars of the JAX package's own test
+      that JAX float64 meets at the same depth (the rest printed), and
+      each score within 2 % of JAX float64's at the same depth, printed
+      and not gated where JAX float32 misses its float64 by more
+      (``task_gate``);
+    * ``simulate.drop_test(initial_height=0.8, duration=DROP_DURATION)``
+      (0.1 s of the JAX reference's 0.6: its record at 0.1 s is the
+      reference): upright, base height in (0.2, 0.8) m, lowest foot below
+      0.1 m, the base path within 1e-4 m of JAX float64's up to JAX's
+      first foot contact, the final base height and feet within 1e-3 m of
+      JAX float64's state at ``DROP_DURATION``; the
       ballistic throw of ``tests/test_simulate.py``: CoM within 2e-3 m of
       free fall; ms per RK4 step, and the launches per derivative from a
       profiled 20-step window;
@@ -3652,17 +3715,18 @@ def phase_dynamics(dev, results, ref, dd_scan):
     cuda_banded.reset_launches()
     with plain_solves_counted() as plain:
         # 2. the trajectory-generation tasks
-        for name, build, shape in (("stop", tasks.high_speed_stop, (1, 40)),
-                                   ("gallop", tasks.periodic_gallop,
-                                    (1, 44))):
+        for name, build, shape, kw, key in (
+                ("stop", tasks.high_speed_stop, (1, 40), {}, "stop"),
+                ("gallop", tasks.periodic_gallop, (1, 44),
+                 {"max_iters": EARLY_STEPS}, "gallop20")):
             before = cuda_banded.launches_by_shape.get(shape, 0)
             t0 = time.perf_counter()
-            r = build(device=dev)
+            r = build(device=dev, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             n = cuda_banded.launches_by_shape.get(shape, 0) - before
             bars, extra = task_bars(name, r, subject)
-            j64, j32 = ref[f"{name}_f64"], ref[f"{name}_f32"]
+            j64, j32 = ref[f"{key}_f64"], ref[f"{key}_f32"]
             gates = {k: task_gate(float(r[k]), j64[k], j32[k])
                      for k in TASK_SCORES[name]}
             rec = {"wall_s": wall, "iterations": r["iterations"],
@@ -3690,22 +3754,6 @@ def phase_dynamics(dev, results, ref, dd_scan):
                     or n == 0:
                 bad.append((name, {"missed_bars": missed, "gates": gates,
                                    "launches": n}))
-        # the gallop's first LM steps, where float32 reproduces its cost
-        r = tasks.periodic_gallop(max_iters=EARLY_STEPS, device=dev)
-        j64, j32 = ref["gallop20_f64"], ref["gallop20_f32"]
-        gates = {k: task_gate(float(r[k]), j64[k], j32[k])
-                 for k in ("cost", "eom_rms_bw")}
-        out["gallop20"] = {"iterations": r["iterations"],
-                           "accepted": r["accepted"], "gates": gates,
-                           "jax_accepted": [j64["accepted"],
-                                            j32["accepted"]]}
-        log(f"# dynamics: gallop, first {EARLY_STEPS} steps: "
-            f"{r['accepted']} accepted (JAX f64 {j64['accepted']}, f32 "
-            f"{j32['accepted']})")
-        for k, g in gates.items():
-            log_task_gate(f"gallop{EARLY_STEPS}", k, g)
-        if not all(g["ok"] and not g["set_aside"] for g in gates.values()):
-            bad.append(("gallop20", out["gallop20"]))
         # 3. the line-scan finish on phase 7's scan
         out["linescan"] = linescan_finish(dev, dd_scan, bad)
     by_shape = dict(cuda_banded.launches_by_shape)
@@ -3722,30 +3770,38 @@ def phase_dynamics(dev, results, ref, dd_scan):
     # 4. the simulator: the drop test, the ballistic throw, a profiled window
     jd = ref["sim"]["drop"]
     t0 = time.perf_counter()
-    d = simulate.drop_test(subject, initial_height=0.8, duration=0.6,
-                           device=dev)
+    d = simulate.drop_test(subject, initial_height=0.8,
+                           duration=DROP_DURATION, device=dev)
     torch.cuda.synchronize()
     drop_s = time.perf_counter() - t0
-    steps = int(round(0.6 / 2e-4))
+    steps = int(round(DROP_DURATION / 2e-4))
     k = jd["first_contact_record"]
     path_err = float(np.abs(d["q"][:k + 1, :3]
                             - np.asarray(jd["base_xyz"])[:k + 1]).max())
+    # JAX float64's state at the cut (its records are 20 steps apart)
+    j_end = int(round(DROP_DURATION / (20 * 2e-4)))
+    j_height = float(jd["base_xyz"][j_end][2])
+    j_feet = np.asarray(jd["foot_heights"][j_end])
+    end_err = max(abs(d["final_base_height"] - j_height),
+                  float(np.abs(d["final_foot_heights"] - j_feet).max()))
     out["drop"] = {"wall_s": drop_s, "ms_per_rk4_step": drop_s * 1e3 / steps,
                    "final_base_height": d["final_base_height"],
                    "upright": d["upright"],
                    "final_foot_heights": d["final_foot_heights"].tolist(),
                    "base_path_err_to_contact": path_err,
-                   "first_contact_record": k}
+                   "first_contact_record": k, "state_err_at_cut": end_err}
     log(f"# dynamics: drop test {drop_s:.2f} s ({steps} RK4 steps, "
         f"{out['drop']['ms_per_rk4_step']:.3f} ms a step): final base "
-        f"height {d['final_base_height']:.4f} m (JAX f64 "
-        f"{jd['final_base_height']:.4f}), upright {d['upright']}, feet "
+        f"height {d['final_base_height']:.4f} m at {DROP_DURATION} s (JAX "
+        f"f64 {j_height:.4f}), upright {d['upright']}, feet "
         f"{np.round(d['final_foot_heights'], 4).tolist()} (JAX f64 "
-        f"{np.round(jd['final_foot_heights'], 4).tolist()}); base path to "
-        f"the first contact (record {k}) within {path_err:.2e} m of JAX f64")
+        f"{np.round(j_feet, 4).tolist()}), within {end_err:.2e} m of JAX "
+        f"f64 there; base path to the first contact (record {k}) within "
+        f"{path_err:.2e} m of JAX f64")
     if not (d["upright"] and 0.2 < d["final_base_height"] < 0.8
             and d["final_foot_heights"].min() < 0.1
-            and np.isfinite(d["q"]).all() and path_err <= TOL_DROP):
+            and np.isfinite(d["q"]).all() and path_err <= TOL_DROP
+            and end_err <= TOL_DROP_STATE):
         bad.append(("drop", out["drop"]))
     q0 = simulate.drop_pose(subject, height=3.0)
     dq0 = np.zeros(54)
@@ -3868,6 +3924,465 @@ def linescan_finish(dev, rec, bad):
     return res
 
 
+# -- phase 17: the response studies and the rest of the results layer -------
+
+# the sweeps' depth (the JAX reference's sweeps parts,
+# tests/data/jax_responses_reference.py SMOKE_DEADBAND / SMOKE_LEVERS)
+RESPONSE_SWEEP = dict(n_frames=48, max_trials=2)
+RESPONSE_DEADBANDS = dict(base_deadbands=(None, 0.05), grf_maxes=(5.0,))
+RESPONSE_LEVERS = {
+    "production": {},
+    "overrides": {"meas_guard": 0.0, "_stages": ((3.0, 10), (1.0, 20)),
+                  "_lam0": 0.5, "_perturb": 0.02},
+}
+FVG_TRIALS = 10
+FVG_VARIANTS = ("default", "chain", "dd_gated", "dd_forced")
+FVG_METRICS = (("mpe", TOL_MPJPE), ("mpjpe", TOL_MPJPE),
+               ("cvr", TOL_COMVEL))
+RESPONSE_SHAPES = ((30, 64), (10, 64), (6, 48), (2, 48))
+
+
+def fvg_agree(rows, rep, ref):
+    """The forced-vs-gated bench's per-variant means, before and after the
+    anchor, against the JAX float32 run's (``ref``: the ``fvg`` part of
+    ``tests/data/jax_responses_f64.json``), each by ``cli_gap`` within 2 %
+    (CoM-velocity 5 %) either way, as it is or once the witnessed trials
+    are set aside: (a) the port's value is the lower one and its prior-free
+    multistart, the start of every variant, reached a lower prior-free cost
+    than JAX float32's (``c_free``), or (b) where the JAX float64 run was
+    recorded, JAX float32 misses its own float64 on that trial by more than
+    the bar. The gap to JAX float64 is printed where it was recorded.
+    Returns (the gates, the failures)."""
+    j32, j64 = ref["f32"], ref.get("f64") or {}
+    if not j32.get("rows"):
+        log("# responses agree: fvg: no JAX float32 record: printed only")
+        return [], []
+    gates, bad = [], []
+    for v in FVG_VARIANTS:
+        for suffix in ("", "_anch"):
+            for m, tol in FVG_METRICS:
+                k = f"{m}_{v}{suffix}"
+                port = np.array([r[k] for r in rows])
+                jx = np.array([r[k] for r in j32["rows"]])
+                unstable = None
+                if j64.get("rows"):
+                    jo = np.array([r[k] for r in j64["rows"]])
+                    unstable = np.abs(jx - jo) > tol * np.abs(jo)
+                g = dict(cli_gap(port, jx, rep["c_free"], j32["c_free"],
+                                 [True] * len(port), unstable), tol=tol,
+                         column=k)
+                if j64.get("rows"):
+                    g["rel_f64"] = float(port.mean() / jo.mean() - 1.0)
+                gates.append(g)
+                ok = min(abs(g["rel"]), abs(g["rel_unexplained"])) <= tol
+                if not ok:
+                    bad.append(g)
+                log(f"# responses agree: fvg {k}: port {g['port']:.4f} "
+                    f"jax_f32 {g['jax_f32']:.4f} (rel {g['rel']:+.4f}; "
+                    f"witnessed {g['witnessed']} (objective "
+                    f"{g['witnessed_objective']}, reference unstable "
+                    f"{g['witnessed_unstable']}), unexplained "
+                    f"{g['rel_unexplained']:+.4f}, bar ±{tol})"
+                    + (f", vs jax_f64 {g['rel_f64']:+.4f}"
+                       if "rel_f64" in g else ", jax_f64 not recorded")
+                    + ("" if ok else " FAILS"))
+    return gates, bad
+
+
+def jax_warm_start(rec):
+    """The JAX run's shared warm start (mean MPE mm, CoM-vel m/s) from its
+    sweeps part ``rec`` (a deadband row's warm columns, else the lever
+    sweep's first scores), None where neither was recorded."""
+    rows = rec["deadband"].get("rows") or []
+    if rows:
+        return {"mpe": rows[0]["mpe_warm_mm"],
+                "comvel": rows[0]["comvel_warm"]}
+    scores = rec["levers"].get("scores") or []
+    if scores:
+        w = scores[0][0]
+        return {"mpe": float(np.mean([t[0] for t in w])),
+                "comvel": float(np.mean([t[2] for t in w]))}
+    return None
+
+
+def sweep_rows_agree(name, rows, jax, label_key, keys, bad):
+    """A response sweep's unrounded rows against the JAX float64 and
+    float32 runs' (``jax``: per dtype the part's ``rows`` as far as it got):
+    each column of ``keys`` ((column, bar)) of a row both recorded by
+    ``sweep_gate``, and the whole row printed, not gated, where JAX
+    float32 misses its own float64 on any of them (the row does not
+    reproduce in float32: its columns come from one solve); a row either
+    run did not record is printed, not gated. Gate failures go to
+    ``bad``. Returns the gates."""
+    rec = {d: {r[label_key]: r for r in (jax.get(d) or {}).get("rows", [])}
+           for d in ("f64", "f32")}
+    gates = []
+    for raw in rows:
+        lab = raw[label_key]
+        j64, j32 = rec["f64"].get(lab), rec["f32"].get(lab)
+        if j64 is None or j32 is None:
+            log(f"# responses agree: {name} {lab}: port "
+                + ", ".join(f"{k} {raw[k]:.4f}" + (
+                    f" (jax_f64 {j64[k]:.4f})" if j64 else "")
+                    for k, _ in keys)
+                + " (JAX float64 or float32 not recorded: printed, not "
+                "gated)")
+            continue
+        row = [dict(sweep_gate(raw[k], j64[k], j32[k], tol), study=name,
+                    row=lab, column=k) for k, tol in keys]
+        if any(g["set_aside"] for g in row):
+            for g in row:
+                g.update(set_aside=True, ok=True)
+        for g in row:
+            k = g["column"]
+            gates.append(g)
+            log(f"# responses agree: {name} {lab} {k}: port "
+                f"{g['port']:.4f} jax_f64 {g['jax_f64']:.4f} jax_f32 "
+                f"{g['jax_f32']:.4f} "
+                + f"(rel {g['rel_f64']:+.4f}, bar ±{g['tol']}"
+                + (", set aside: JAX f32 misses its f64)" if g["set_aside"]
+                   else ")") + ("" if g["ok"] else " FAILS"))
+            if not g["ok"]:
+                bad.append(g)
+    return gates
+
+
+@contextlib.contextmanager
+def physics_batches_kept():
+    """Keep what ``bench_lib.build_physics_batch`` returns inside the block
+    (into the yielded list); every call runs as it would."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+
+    kept = []
+    orig = bench_lib.build_physics_batch
+
+    def build(*a, **k):
+        out = orig(*a, **k)
+        kept.append(out)
+        return out
+
+    bench_lib.build_physics_batch = build
+    try:
+        yield kept
+    finally:
+        bench_lib.build_physics_batch = orig
+
+
+def response_kernel_check(dev, kbat, qw):
+    """The kernel on the deadband sweep's first kinetic system (the
+    ``"floor"`` configuration at the warm start, the first stage's scale 3,
+    lam = 1e-2) against the plain version in float64."""
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.solver import gn
+    from cheetah_pose_estimation_tpu_torch.solver import kinematic as kin
+    from cheetah_pose_estimation_tpu_torch.solver import kinetic as kn
+
+    fte = kn.KineticFTE(kn.KineticConfig(use_gmm=True, base_deadband=None,
+                                         grf_max=5.0),
+                        params.get_subject("acinoset"))
+    b = kbat.base
+    floor = torch.clamp(torch.diagonal(kin.acc_banded(
+        b.h, b.acc_weight, b.frame_valid).diag, dim1=-2, dim2=-1), min=1e-8)
+    g, H = fte._normal(qw, kbat, 3.0,
+                       eom_blocks=fte.eom_curvature_blocks(qw, kbat))
+    Hs, rhs, _ = gn.scaled_system(g, H, torch.full((qw.shape[0],), 1e-2,
+                                                   device=dev), floor)
+    d32, l32, r32 = (x.contiguous() for x in (Hs.diag, Hs.lower, rhs))
+    x = cuda_banded.solve(d32, l32, r32)
+    torch.cuda.synchronize()
+    ref64 = cuda_banded.solve_reference(d32.double(), l32.double(),
+                                        r32.double())
+    abs_err = float((x.double() - ref64).abs().max())
+    kern = {"systems": "deadband sweep, first kinetic system", "B":
+            d32.shape[0], "N": d32.shape[1], "lam": 1e-2,
+            "rel_err": abs_err / float(ref64.abs().max()),
+            "max_abs_err": abs_err}
+    log(f"# responses: kernel {kern}")
+    if not (torch.isfinite(x).all() and kern["rel_err"] <= TOL_REL):
+        raise AssertionError(f"kernel on the kinetic system: {kern}")
+    return kern
+
+
+def response_studies(dev, ref, dset, work):
+    """The three response studies (phase 17's main path) on the card with
+    their reports, the kernel counted per study; then their checks.
+    Returns (launches per shape, the phase's record, its failures)."""
+    import csv
+
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import estimator
+    from cheetah_pose_estimation_tpu_torch.pipeline import studies
+
+    os.environ["CHEETAH_DATA_DRIVEN_DATASET"] = dset
+    out, bad, reps, per = {}, [], {}, {}
+    csvs = {"fvg": os.path.join(work, "forced_vs_gated.csv"),
+            "deadband": os.path.join(work, "deadband_sweep.csv"),
+            "levers": os.path.join(work, "physics_lever_sweep.csv")}
+    runs = {
+        "fvg": lambda rep: studies.run_forced_vs_gated_bench(
+            out_csv=csvs["fvg"], report=rep),
+        "deadband": lambda rep: studies.run_deadband_sweep(
+            out_dir=work, report=rep, **RESPONSE_DEADBANDS,
+            **RESPONSE_SWEEP),
+        "levers": lambda rep: studies.run_physics_lever_sweep(
+            out_csv=csvs["levers"], variants=RESPONSE_LEVERS, report=rep,
+            **RESPONSE_SWEEP)}
+    rows = {}
+    cuda_banded.reset_launches()
+    t_all = time.perf_counter()
+    with plain_solves_counted() as plain, physics_batches_kept() as kept:
+        for name, run in runs.items():
+            before = dict(cuda_banded.launches_by_shape)
+            reps[name] = {}
+            t0 = time.perf_counter()
+            rows[name] = run(reps[name])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {s: n - before.get(s, 0) for s, n in
+                        cuda_banded.launches_by_shape.items()
+                        if n - before.get(s, 0)}
+            per[name] = {"wall_s": wall,
+                         "lm_steps": int(sum(launches.values())),
+                         "launches_by_shape": shape_keys(launches)}
+            log(f"# responses: {name}: wall {wall:.2f} s, kernel launches "
+                f"{per[name]['launches_by_shape']}")
+            if not launches:
+                bad.append(("no kernel launch", name))
+    out["wall_s"] = time.perf_counter() - t_all
+    by_shape = dict(cuda_banded.launches_by_shape)
+    log(f"# responses: main path {out['wall_s']:.2f} s, kernel launches "
+        f"{shape_keys(by_shape)}, plain banded solves {plain}")
+    if sum(plain.values()):
+        raise AssertionError(f"the response studies ran plain banded solves "
+                             f"on the card: {plain}")
+    untimed = sorted(set(by_shape) - set(SHAPES + STUDY_SHAPES))
+    if untimed:
+        raise AssertionError(f"shapes not timed in phase 3: {untimed}")
+    out["studies"] = per
+
+    # 1. the forced-vs-gated bench: form and the gate's own arithmetic
+    fvg, rep = rows["fvg"], reps["fvg"]
+    with open(csvs["fvg"], encoding="utf-8", newline="") as f:
+        table = list(csv.reader(f))
+    jcols = (ref["fvg"]["f32"] or ref["small"]["fvg"])["columns"]
+    names = [r["trial"] for r in fvg]
+    vals = [r[c] for r in fvg for c in jcols[3:]]
+    if table[0] != jcols or names != [f"synthetic_gallop_{i}" for i in
+                                      range(FVG_TRIALS)] \
+            or len(table) != FVG_TRIALS + 1 or not np.isfinite(vals).all():
+        bad.append(("fvg form", table[0], names))
+    c_chain, c_free = np.array(rep["c_chain"]), np.array(rep["c_free"])
+    gate = estimator.prior_gate_accept(c_chain, c_free, 1.10)
+    if [r["ratio"] for r in fvg] != (c_chain / c_free).tolist() \
+            or [r["gate"] for r in fvg] != gate.tolist():
+        bad.append(("fvg gate arithmetic", [r["ratio"] for r in fvg]))
+    for i, r in enumerate(fvg):
+        if not r["gate"] and any(r[f"{m}_dd_gated"] != r[f"{m}_default"]
+                                 for m in ("mpe", "mpjpe", "cvr")):
+            bad.append(("fvg: a rejected trial's dd_gated is not default",
+                        r["trial"]))
+        for v in FVG_VARIANTS:
+            if not rep["anchor"][v]["accept"][i] and any(
+                    r[f"{m}_{v}_anch"] != r[f"{m}_{v}"]
+                    for m in ("mpe", "mpjpe", "cvr")):
+                bad.append(("fvg: an unaccepted anchor changed", v,
+                            r["trial"]))
+    j32 = ref["fvg"]["f32"]
+    log(f"# responses: fvg gate accepts {int(gate.sum())}/{len(gate)} "
+        f"(JAX float32 {j32.get('accepted', 'not recorded')}, JAX float64 "
+        f"{(ref['fvg']['f64'] or {}).get('accepted', 'not recorded')}); "
+        f"ratio {np.round(c_chain / c_free, 4).tolist()}; anchor accepts "
+        + ", ".join(f"{v} {sum(rep['anchor'][v]['accept'])}"
+                    for v in FVG_VARIANTS))
+    for r in fvg:
+        log(f"# responses: fvg {r['trial']} gate {r['gate']} ratio "
+            f"{r['ratio']:.4f}: " + ", ".join(
+                f"{v} MPE {r[f'mpe_{v}']:.1f}->{r[f'mpe_{v}_anch']:.1f}"
+                for v in FVG_VARIANTS))
+    gates, fails = fvg_agree(fvg, rep, ref["fvg"])
+    bad += [("fvg agree", g["column"], g["rel"], g["rel_unexplained"])
+            for g in fails]
+    out["fvg"] = {"rows": fvg, "c_free": rep["c_free"],
+                  "c_chain": rep["c_chain"], "anchor": rep["anchor"],
+                  "gates": gates}
+
+    # 2. the sweeps: columns, the warm start, the rows
+    kern = response_kernel_check(dev, *kept[0])
+    jsw = ref["sweeps"]
+    jcols = {k: (jsw["f64"][k].get("columns") or jsw["f32"][k].get("columns")
+                 or ref["small"]["sweeps"][f"{k}_production" if k == "levers"
+                                           else "deadband_floor"]["columns"])
+             for k in ("deadband", "levers")}
+    for k in ("deadband", "levers"):
+        with open(csvs[k], encoding="utf-8", newline="") as f:
+            table = list(csv.reader(f))
+        log(f"# responses: {os.path.basename(csvs[k])}: {table}")
+        if table[0] != jcols[k] or len(table) != 3:
+            bad.append((k, "columns", table[0], jcols[k]))
+    warm = {}
+    for k in ("deadband", "levers"):
+        w = reps[k]["warm"]
+        warm[k] = {"mpe": float(np.mean([s[0] for s in w])),
+                   "comvel": float(np.mean([s[2] for s in w]))}
+    jw = {d: jax_warm_start(jsw[d]) for d in ("f64", "f32")}
+    for k in ("deadband", "levers"):
+        for c in ("mpe", "comvel"):
+            if jw["f64"] is None or jw["f32"] is None:
+                log(f"# responses agree: {k} warm start {c}: port "
+                    f"{warm[k][c]:.4f}, JAX {jw} (JAX float64 or float32 "
+                    f"not recorded: printed, not gated)")
+                continue
+            g = sweep_gate(warm[k][c], jw["f64"][c], jw["f32"][c],
+                           TOL_MPJPE)
+            log(f"# responses agree: {k} warm start {c}: port "
+                f"{g['port']:.4f} jax_f64 {g['jax_f64']:.4f} jax_f32 "
+                f"{g['jax_f32']:.4f} "
+                + f"(rel {g['rel_f64']:+.4f}, bar ±{TOL_MPJPE}"
+                + (", set aside: JAX f32 misses its f64)" if g["set_aside"]
+                   else ")") + ("" if g["ok"] else " FAILS"))
+            if not g["ok"]:
+                bad.append(("warm start", k, c, g))
+    gates = sweep_rows_agree(
+        "deadband", reps["deadband"]["rows"],
+        {d: jsw[d]["deadband"] for d in ("f64", "f32")}, "base_deadband",
+        (("comvel_rmse", TOL_COMVEL), ("mpe_mm", TOL_MPJPE)), bad)
+    gates += sweep_rows_agree(
+        "levers", reps["levers"]["rows"],
+        {d: jsw[d]["levers"] for d in ("f64", "f32")}, "variant",
+        (("comvel_rmse", TOL_COMVEL), ("mpe_mm", TOL_MPJPE),
+         ("mpjpe_mm", TOL_MPJPE)), bad)
+    for raw, acc in zip(reps["levers"]["rows"], reps["levers"]["accepted"]):
+        log(f"# responses: levers {raw['variant']}: mean accepted LM steps "
+            f"{raw['mean_accepted_iters']} (per lane {acc}), JAX "
+            + ", ".join(f"{d} {r['mean_accepted_iters']}"
+                        for d in ("f64", "f32")
+                        for r in jsw[d]["levers"].get("rows", [])
+                        if r["variant"] == raw["variant"])
+            + "; dMPE {:.3f} dMPJPE {:.3f} mm, CoM-vel {:+.2f} %".format(
+                raw["dmpe_mm"], raw["dmpjpe_mm"],
+                raw["comvel_improvement_pct"]))
+    for row, sc in zip(reps["deadband"]["rows"],
+                       reps["deadband"]["per_trial"]):
+        log(f"# responses: deadband {row['base_deadband']} grf_max "
+            f"{row['grf_max']}: CoM-vel {row['comvel_rmse']:.4f} (warm "
+            f"{row['comvel_warm']:.4f}, {row['comvel_improvement_pct']:+.3f}"
+            f" %), MPE {row['mpe_mm']:.3f} mm; per trial {sc}")
+    if not all(np.isfinite([r[k] for r in reps[s]["rows"] for k in r
+                            if k not in ("base_deadband", "variant")]).all()
+               for s in ("deadband", "levers")):
+        bad.append(("sweeps", "non-finite values"))
+    out["sweeps"] = {"rows": {k: reps[k]["rows"] for k in
+                              ("deadband", "levers")},
+                     "per_trial": {k: reps[k]["per_trial"] for k in
+                                   ("deadband", "levers")},
+                     "accepted": reps["levers"]["accepted"], "warm": warm,
+                     "gates": gates}
+    out["kernel"] = kern
+    return by_shape, out, bad
+
+
+def results_layer(dev, cli_root, cli_out, cli_trial, kinetic, work):
+    """The rest of the results layer on the trees phases 9 and 11 wrote:
+    ``compare_traj_error`` on phase 9's first trial for its camera (with
+    the physics-based mode), ``check_joint_estimation`` and
+    ``plot_eom_error`` on phase 11's force-plate solution against itself,
+    ``get_power_values`` and ``torque_error`` on its torques, and the plots
+    (False where matplotlib is not installed, as on the card). Gate:
+    finite values; MPJPE 0 and torque RMSE 0 of the solution against
+    itself, a zero torque error; each plot written exactly where
+    matplotlib is installed. Returns (the record, the failures)."""
+    import importlib.util
+
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+    from cheetah_pose_estimation_tpu_torch.dynamics.eom import tau_from_dict
+    from cheetah_pose_estimation_tpu_torch.models import params
+    from cheetah_pose_estimation_tpu_torch.pipeline import metrics
+    from cheetah_pose_estimation_tpu_torch.pipeline import results as res
+    from cheetah_pose_estimation_tpu_torch.pipeline import visualize
+
+    bad, rec = [], {}
+    plots = importlib.util.find_spec("matplotlib") is not None
+    base = os.path.join(cli_out, cli_trial)
+    cam = dio.load_metadata(os.path.join(cli_root,
+                                         cli_trial))["monocular_cam"]
+    t0 = time.perf_counter()
+    cmp = metrics.compare_traj_error(base, cam, include_kinetic=True)
+    rec["compare_traj_error"] = {
+        "trial": cli_trial, "cam": cam,
+        "modes": {m: {k: float(v) for k, v in s.items() if k != "per_joint"}
+                  for m, s in cmp.items()}}
+    log(f"# responses: compare_traj_error {cli_trial} camera {cam}: "
+        f"{rec['compare_traj_error']['modes']}")
+    if list(cmp) != ["single view", "data-driven", "physics-based"] or not \
+            np.isfinite([v for s in rec["compare_traj_error"]["modes"]
+                         .values() for v in s.values()]).all():
+        bad.append(("compare_traj_error", rec["compare_traj_error"]))
+    kp = kinetic["trials"][0]                  # kinetic_dataset/date/c/trialNN
+    _, date, cheetah, trial = kp.split("/")
+    fte_p = os.path.join(kinetic["out"], kp, "fte_kinetic", "fte.pickle")
+    cje = res.check_joint_estimation(kinetic["out"], kinetic["out"],
+                                     cheetah=cheetah, date=date,
+                                     trial=trial[len("trial"):])
+    eom = res.plot_eom_error(fte_p, params.get_subject(cheetah),
+                             os.path.join(work, "eom_error.pdf"),
+                             device=dev)
+    d = dio.load_fte_pickle(fte_p)
+    tau = tau_from_dict(d["tau"], d["q"].shape[0])
+    power = res.get_power_values(d["q"], tau, 200.0)
+    te, _, _ = res.torque_error(tau, tau)
+    stats = res.plot_power_values(d["q"], tau, 200.0,
+                                  os.path.join(work, "power.pdf"))
+    drawn = {"plot_cost_functions": res.plot_cost_functions(
+                 os.path.join(work, "cost.pdf")),
+             "render_trial": visualize.render_trial(
+                 fte_p, os.path.join(work, "animation.mp4")),
+             "plot_pose": visualize.plot_pose(
+                 d["positions"][0], os.path.join(work, "pose.pdf"))}
+    rec.update(check_joint_estimation=cje, eom_rms_bw=float(np.sqrt(np.mean(
+        eom ** 2))), eom_max_bw=float(eom.max()), power=stats,
+        torque_error_max=float(np.max(te)), plots=drawn,
+        wall_s=time.perf_counter() - t0)
+    log(f"# responses: results on {kp}: check_joint_estimation {cje}, EOM "
+        f"residual RMS {rec['eom_rms_bw']:.4f} max {rec['eom_max_bw']:.4f} "
+        f"body weights over {eom.size} frames, power peak "
+        f"{stats['peak']:.4f} mean {stats['mean']:.4f}, torque error "
+        f"{rec['torque_error_max']}, plots {drawn} (matplotlib "
+        f"{'installed' if plots else 'not installed'}), "
+        f"{rec['wall_s']:.2f} s")
+    if cje != {"mpjpe_mm": 0.0, "torque_rmse": 0.0} or \
+            rec["torque_error_max"] != 0.0 or not np.isfinite(eom).all() \
+            or not np.isfinite(np.hstack(list(power.values()))).all() \
+            or not np.isfinite(list(stats.values())).all():
+        bad.append(("results layer", rec))
+    if any(bool(v) != plots for v in drawn.values()):
+        bad.append(("plots", drawn, plots))
+    return rec, bad
+
+
+def phase_responses(dev, results, ref, dset, cli_root, cli_out, cli_trial,
+                    kinetic):
+    """Phase 17: the three response studies on the card
+    (``studies.run_forced_vs_gated_bench`` at its size, 10 trials x 64
+    frames, then ``run_deadband_sweep`` and ``run_physics_lever_sweep`` at
+    2 trials x 48 frames) with phase 9's pose tables as the priors, held to
+    ``tests/data/jax_responses_f64.json`` (``response_studies``), then the
+    rest of the results layer on phases 9 and 11's trees
+    (``results_layer``). Returns the kernel's launches per shape."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="responses_")
+    by_shape, out, bad = response_studies(dev, ref, dset, work)
+    out["results_layer"], bad_r = results_layer(
+        dev, cli_root, cli_out, cli_trial, kinetic, work)
+    results["responses"] = out
+    bad += bad_r
+    if bad:
+        raise AssertionError(f"the response studies failed their checks: "
+                             f"{bad[:6]}")
+    return by_shape, out["kernel"]["rel_err"], out["kernel"]["max_abs_err"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -3878,6 +4393,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset
     from cheetah_pose_estimation_tpu_torch.utils.device import resolve_device
 
     results = {}
@@ -3942,8 +4458,17 @@ def main():
               encoding="utf-8") as f:
         dynamics_ref = json.load(f)
     dynamics_shapes = phase_dynamics(dev, results, dynamics_ref, dd_scan)
-    worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel, an_rel, st_rel)
-    worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs, an_abs, st_abs)
+    with open(os.path.join(HERE, "tests", "data", "jax_responses_f64.json"),
+              encoding="utf-8") as f:
+        responses_ref = json.load(f)
+    cheetah, date, trial = run_dataset.TEST_SET[0]
+    responses_shapes, rs_rel, rs_abs = phase_responses(
+        dev, results, responses_ref, dset, root, cli_out,
+        os.path.join(date, cheetah, trial), results["kinetic"]["tree"])
+    worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel, an_rel, st_rel,
+                    rs_rel)
+    worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs, an_abs, st_abs,
+                    rs_abs)
 
     main_shape = timed[0]                     # (10, 64): the finish's shape
     keys = ("kernel_ms", "plain_ms", "cr_ms", "library_ms", "bound_ms",
@@ -3958,7 +4483,7 @@ def main():
         + sum(serial_shapes.values()) + sum(kinetic_shapes.values())
         + sum(acinoset_shapes.values()) + sum(analysis_shapes.values())
         + sum(studies_shapes.values()) + sum(options_shapes.values())
-        + sum(dynamics_shapes.values()),
+        + sum(dynamics_shapes.values()) + sum(responses_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
                              "physics": shape_keys(physics_shapes),
@@ -3969,7 +4494,8 @@ def main():
                              "analysis": shape_keys(analysis_shapes),
                              "studies": shape_keys(studies_shapes),
                              "options": shape_keys(options_shapes),
-                             "dynamics": shape_keys(dynamics_shapes)},
+                             "dynamics": shape_keys(dynamics_shapes),
+                             "responses": shape_keys(responses_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

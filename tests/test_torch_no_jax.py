@@ -1,7 +1,7 @@
-"""The PyTorch port runs without JAX, pandas or the JAX package: in a fresh
-interpreter where importing ``jax``, ``jaxlib`` or ``pandas`` fails as on a
-machine without them, import the port, build and solve a 2-trial 16-frame
-problem on the CPU, train small priors and run the data-driven stage and
+"""The PyTorch port runs without JAX, pandas, matplotlib or the JAX
+package: in a fresh interpreter where importing ``jax``, ``jaxlib``,
+``pandas`` or ``matplotlib`` fails as on a machine without them, import
+the port, build and solve a 2-trial 16-frame problem on the CPU, train small priors and run the data-driven stage and
 then the physics stage on it with tiny schedules; render the first trial of the dataset CLI's synthetic test
 set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
 (``run_monocular_batched``, multi-view), then the serial per-trial path on
@@ -17,8 +17,10 @@ short trajectory, and write, read and assemble the first trial's pairwise
 pseudo-measurements (``data/ppm``), the dynamics tools (a tiny
 trajectory-generation solve, RK4 steps with passive elements) and the
 remaining prior options (a PCA fit, a PCA-space AR model, a line-scan with
-a finish); then check
-``sys.modules``. No
+a finish), the three response studies (the forced-vs-gated bench and a
+deadband row on two 16-frame trials) and the results layer
+(``compare_traj_error``, the power traces, plots that report False with
+matplotlib blocked too); then check ``sys.modules``. No
 module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
 own copies of the tables it needs."""
 import os
@@ -32,7 +34,7 @@ SCRIPT = textwrap.dedent("""
     import sys
     # as on a machine without them: importing raises ModuleNotFoundError,
     # importlib.util.find_spec returns None
-    for blocked in ("jax", "jaxlib", "pandas"):
+    for blocked in ("jax", "jaxlib", "pandas", "matplotlib"):
         sys.modules[blocked] = None
     import numpy as np
     import torch
@@ -215,8 +217,37 @@ SCRIPT = textwrap.dedent("""
     q_fin, sh = scan(st.q, batched, rays)
     assert q_fin.shape == (2, 16, 54) and torch.isfinite(q_fin).all()
     assert not torch.equal(q_fin, st.q) and sh.tolist() == [0.0, 0.0]
+    # the response studies on two 16-frame trials, then the results layer
+    bench_lib.load_reference_trajectories = lambda m=None: [
+        (syn.gallop_trajectory(16, seed=i), "acinoset", 120.0)
+        for i in range(2)]
+    fvg = studies.run_forced_vs_gated_bench(
+        out_csv=os.path.join(tmp, "fvg", "fvg.csv"), n_frames=16,
+        dtype=torch.float64, device="cpu", verbose=False)
+    assert [r["trial"] for r in fvg] == ["synthetic_gallop_0",
+                                         "synthetic_gallop_1"]
+    assert np.isfinite([r["mpe_dd_forced_anch"] for r in fvg]).all()
+    db = studies.run_deadband_sweep(
+        base_deadbands=(None,), grf_maxes=(5.0,), n_frames=16, max_trials=2,
+        out_dir=tmp, dtype=torch.float64, device="cpu", verbose=False)
+    assert db[0]["base_deadband"] == "floor"
+    assert np.isfinite(db[0]["comvel_rmse"])
+    import shutil
+    shutil.copytree(os.path.join(tmp, "out", d, c, t, "fte_kinematic"),
+                    os.path.join(base, "fte_kinematic"))
+    cmp = metrics.compare_traj_error(base, 2, include_kinetic=True)
+    assert list(cmp) == ["single view", "physics-based"]
+    assert np.isfinite(cmp["physics-based"]["mpjpe_mm"])
+    power = results.get_power_values(qk.numpy(), np.ones((6, 22)), 200.0)
+    assert np.isfinite(np.hstack(list(power.values()))).all()
+    assert results.plot_cost_functions(os.path.join(tmp, "c.pdf")) is False
+    assert not os.path.exists(os.path.join(tmp, "c.pdf"))
+    from cheetah_pose_estimation_tpu_torch.pipeline import visualize
+    assert visualize.render_trial(os.path.join(
+        base, "fte_kinetic_2", "fte.pickle")) is False
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
+                                         "matplotlib",
                                          "cheetah_pose_estimation_tpu"))
     print("FORBIDDEN", bad)
     assert not bad, bad

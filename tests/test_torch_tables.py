@@ -164,3 +164,33 @@ def test_dynamics_entry_points_need_the_card_or_cpu(monkeypatch, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         fn()
     assert fn(device="cpu") is not None
+
+
+def _response_entry_points():
+    """The response studies' and the results layer's entry points that
+    compute on a device, called without a device."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import bench_lib
+    from cheetah_pose_estimation_tpu_torch.pipeline import results, studies
+
+    sub = tparams.get_subject("acinoset")
+    return {
+        "run_forced_vs_gated_bench": studies.run_forced_vs_gated_bench,
+        "run_deadband_sweep": studies.run_deadband_sweep,
+        "run_physics_lever_sweep": studies.run_physics_lever_sweep,
+        "make_anchor_polish": lambda: bench_lib.make_anchor_polish(sub),
+        "plot_eom_error": lambda: results.plot_eom_error("x", sub, "x.pdf"),
+        "plot_3d_pose": lambda: results.plot_3d_pose("x", 0, sub, "x",
+                                                     "x.pdf"),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_response_entry_points()))
+def test_response_entry_points_need_the_card(monkeypatch, entry):
+    """The response studies, the bench anchor polish and the results
+    functions that run the kinematics or the EOM take the card by default
+    and raise without one before any work (their CPU runs, with
+    ``device="cpu"``, are in test_torch_responses.py and
+    test_torch_results.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _response_entry_points()[entry]()
