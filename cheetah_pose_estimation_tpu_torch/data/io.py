@@ -15,7 +15,16 @@ same formats, so each package reads the other's trees:
 * ``fte.pickle`` with keys positions/x/dx/ddx/q/dq/ddq/com_pos/com_vel/tau/
   meas_err/obj_cost/processing_time_s/start_frame;
 * ``cam<i>_fte.csv`` reprojections with the 2-level (bodyparts, coords)
-  header (read back with ``read_table(path, 2)``).
+  header (read back with :func:`load_reprojection_table`).
+
+A trial's DLC tables are read as the JAX package reads them by default:
+CSV tables by the C++ reader of ``native/`` (float32 pixels and
+likelihoods, bit for bit JAX's read), and a directory that also holds
+``.h5`` tables (a tree the JAX package wrote) exactly, in float64, from
+their ``.csv`` siblings (JAX reads the ``.h5`` tables exactly, and the
+``.csv`` holds the same values). ``load_dlc_points(..., use_native=False)``
+always reads exactly, with the numpy reader (:func:`read_table`), as the
+JAX package's pandas reader does.
 
 The ``.h5`` forms are neither read nor written: there is no HDF5 reader
 here. The JAX writer puts a ``.csv`` beside every ``.h5`` it writes, so its
@@ -210,19 +219,25 @@ def load_dlc_table(fpath: str) -> Table:
     return read_table(fpath, 3)
 
 
-def load_dlc_points(dlc_dir: str, n_cams: Optional[int] = None):
+def load_dlc_points(dlc_dir: str, n_cams: Optional[int] = None,
+                    use_native: bool = True):
     """All per-camera DLC tables of a trial as arrays.
 
     Returns (xy (n_frames, C, L, 2), likelihood (n_frames, C, L),
     bodyparts). Table rows are aligned on the frame index (missing frames
-    NaN / likelihood 0)."""
+    NaN / likelihood 0). CSV-only directories go through the threaded C++
+    reader (``native.load_tables``, float32 values; it raises when it
+    cannot be built); with ``use_native=False``, or beside ``.h5`` tables
+    (which the JAX package reads exactly instead of its CSV tables),
+    through the exact numpy reader."""
     paths = sorted(glob(os.path.join(dlc_dir, "*.csv")))
-    if not paths:
-        h5 = sorted(glob(os.path.join(dlc_dir, "*.h5")))
-        if h5:
-            _no_h5(h5[0])
+    h5 = sorted(glob(os.path.join(dlc_dir, "*.h5")))
+    if not paths and h5:
+        _no_h5(h5[0])
     if n_cams is not None:
         assert len(paths) == n_cams, (len(paths), n_cams)
+    if use_native and paths and not h5:
+        return _load_dlc_points_native(paths)
     tables = [load_dlc_table(p) for p in paths]
     bodyparts = list(dict.fromkeys(c[1] for c in tables[0].columns))
     n_frames = max(int(t.index.max()) for t in tables) + 1
@@ -235,6 +250,28 @@ def load_dlc_points(dlc_dir: str, n_cams: Optional[int] = None):
             xy[t.index, c, l, 0] = t.values[:, col[(bp, "x")]]
             xy[t.index, c, l, 1] = t.values[:, col[(bp, "y")]]
             lik[t.index, c, l] = t.values[:, col[(bp, "likelihood")]]
+    return xy, lik, bodyparts
+
+
+def _load_dlc_points_native(paths: List[str]):
+    """The tables at ``paths`` through the C++ reader, on one thread per
+    table; the body parts from the first table's header."""
+    from .. import native
+
+    tables = native.load_tables(paths)
+    with open(paths[0], "r", encoding="utf-8") as f:
+        header = [f.readline() for _ in range(2)]
+    bp_line = header[1] if header[0].lower().startswith("scorer") \
+        else header[0]
+    bodyparts = list(dict.fromkeys(
+        c for c in bp_line.strip().split(",")[1:] if c))
+    n_frames = max(int(idx.max()) for _, _, idx in tables) + 1
+    C, L = len(tables), len(bodyparts)
+    xy = np.full((n_frames, C, L, 2), np.nan)
+    lik = np.zeros((n_frames, C, L))
+    for c, (xy_t, lik_t, idx) in enumerate(tables):
+        xy[idx, c] = xy_t
+        lik[idx, c] = lik_t
     return xy, lik, bodyparts
 
 
@@ -293,3 +330,14 @@ def save_3d_cheetah_as_2d(positions_3d_arr: Sequence[np.ndarray],
                           cols, data.reshape(n_frames, -1),
                           ("bodyparts", "coords")))
 
+
+def load_reprojection_table(fpath: str) -> Table:
+    """A ``cam<i>_<name>.csv`` reprojection table (2-level header); a
+    ``.h5`` path reads the ``.csv`` beside it, and raises when there is
+    none."""
+    base, ext = os.path.splitext(fpath)
+    if ext == ".h5":
+        if not os.path.exists(base + ".csv"):
+            _no_h5(fpath)
+        fpath = base + ".csv"
+    return read_table(fpath, 2)

@@ -36,7 +36,7 @@ from ..models.params import LINK_INDEX, N_LINKS, NQ, SubjectParams
 from ..ops.rotations import (euler_rate_to_body_omega,
                              euler_zyx_and_derivative,
                              euler_zyx_second_derivative)
-from ..utils.device import constant, tables_of
+from ..utils.device import FORWARD_AD, constant, tables_of
 
 GRAVITY = 9.81
 
@@ -112,8 +112,9 @@ def kinetic_energy(q: torch.Tensor, dq: torch.Tensor,
                    subject: SubjectParams) -> torch.Tensor:
     """Total kinetic energy (translational + rotational), by a forward-mode
     derivative of the link centres (the reference cross-check)."""
-    _, vcom = torch.func.jvp(lambda qq: sk.link_frames(qq, subject).com,
-                             (q,), (dq,))
+    with FORWARD_AD:
+        _, vcom = torch.func.jvp(
+            lambda qq: sk.link_frames(qq, subject).com, (q,), (dq,))
     tb = tables(subject, q)
     ke_t = 0.5 * (tb.mass * (vcom * vcom).sum(-1)).sum(-1)
     E = euler_rate_to_body_omega(_angles(q))
@@ -131,8 +132,9 @@ def mass_matrix_ad(q: torch.Tensor, subject: SubjectParams) -> torch.Tensor:
     """M(q) = d^2 KE / ddq^2 by nested autodiff, for one frame q (54,)
     (the reference cross-check of :func:`mass_matrix`)."""
     ke_dq = torch.func.grad(kinetic_energy, argnums=1)
-    return torch.func.jacfwd(ke_dq, argnums=1)(q, torch.zeros_like(q),
-                                               subject)
+    with FORWARD_AD:
+        return torch.func.jacfwd(ke_dq, argnums=1)(q, torch.zeros_like(q),
+                                                   subject)
 
 
 def _omega_selector(q: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,16 @@ NQ = 6 + 3 * (N_LINKS - 1)  # 54
 LINK_INDEX = {name: i for i, name in enumerate(LINK_NAMES)}
 
 
+# q-vector slices: base occupies q[0:6]; link i>0 occupies q[3*i+3 : 3*i+6].
+def q_slice(link: int) -> slice:
+    return slice(0, 6) if link == 0 else slice(3 * link + 3, 3 * link + 6)
+
+
+def angle_slice(link: int) -> slice:
+    """Slice of q holding (phi, theta, psi) for a link."""
+    return slice(3, 6) if link == 0 else slice(3 * link + 3, 3 * link + 6)
+
+
 @dataclasses.dataclass(frozen=True)
 class SubjectParams:
     """Morphology of one subject as flat per-link arrays (length N_LINKS)."""

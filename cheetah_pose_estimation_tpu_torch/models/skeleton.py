@@ -369,6 +369,36 @@ def _ey(q: torch.Tensor) -> torch.Tensor:
     return constant("ey", q, lambda: np.array([0.0, 1.0, 0.0]))
 
 
+def project_joint_manifold(q: torch.Tensor) -> torch.Tensor:
+    """Chain-wise geometric projection of q (..., 54) onto the joint
+    manifold: along each leg chain the child's rotation becomes parent_R
+    Ry(theta*), theta* the best-fit pure pitch of the relative rotation
+    (max trace alignment); the tail links get the Hooke fit Ry(a) Rz(b).
+    The base position and the free links (base, bodyF, neck) pass through.
+    Each output coordinate takes the 2 pi branch nearest its input."""
+    from ..ops.rotations import euler_zyx_inverse, rot_y, rot_z
+
+    R_raw = euler_zyx(_angles_from_q(q))              # (..., 17, 3, 3)
+    R_new = {i: R_raw[..., i, :, :] for i in range(N_LINKS)}
+    for a, b in REVOLUTE_PAIRS:
+        Rp = R_new[LINK_INDEX[a]]
+        Rrel = Rp.mT @ R_raw[..., LINK_INDEX[b], :, :]
+        th = torch.atan2(Rrel[..., 0, 2] - Rrel[..., 2, 0],
+                         Rrel[..., 0, 0] + Rrel[..., 2, 2])
+        R_new[LINK_INDEX[b]] = Rp @ rot_y(th)
+    for a, b in HOOKE_PAIRS:
+        Rp = R_new[LINK_INDEX[a]]
+        Rrel = Rp.mT @ R_raw[..., LINK_INDEX[b], :, :]
+        bb = torch.atan2(Rrel[..., 1, 0], Rrel[..., 1, 1])
+        aa = torch.atan2(Rrel[..., 0, 2], Rrel[..., 2, 2])
+        R_new[LINK_INDEX[b]] = Rp @ rot_y(aa) @ rot_z(bb)
+    ang = torch.stack([euler_zyx_inverse(R_new[i]) for i in range(N_LINKS)],
+                      dim=-2)
+    out = torch.cat([q[..., :3], ang.flatten(-2)], dim=-1)
+    two_pi = 2.0 * np.pi
+    return out + two_pi * torch.round((q - out) / two_pi)
+
+
 # ---------------------------------------------------------------------------
 # Relative ("pose") coordinates x in R^28
 # ---------------------------------------------------------------------------

@@ -273,3 +273,23 @@ def cr_solve(H: BlockBanded, b: torch.Tensor, refine: int = 1
         dx = _cr_apply(levels, L0, rs)[:, :M]
         xb = xb + dx.reshape(Bt, -1, d)[:, :N]
     return xb
+
+
+def add_diag_damping(H: BlockBanded, lam, scale=None) -> BlockBanded:
+    """Levenberg damping H + lam diag(scale) (identity without ``scale``).
+    ``lam`` is a scalar or one value per leading (batch) index of H.diag
+    (..., N, d, d); ``scale`` broadcasts against its (..., N, d)."""
+    lam = torch.as_tensor(lam, dtype=H.diag.dtype, device=H.diag.device)
+    lam = lam.reshape(lam.shape + (1, 1, 1))
+    if scale is None:
+        eye = torch.eye(H.block, dtype=H.diag.dtype, device=H.diag.device)
+        return H._replace(diag=H.diag + lam * eye)
+    return H._replace(diag=H.diag + lam * torch.diag_embed(
+        torch.as_tensor(scale, dtype=H.diag.dtype, device=H.diag.device)))
+
+
+def logdet_from_factor(L: BlockBanded) -> torch.Tensor:
+    """log det(H) = 2 sum log diag(L) of a factor from :func:`cholesky`,
+    per system (one value per leading index of L.diag (..., N, d, d))."""
+    dd = torch.diagonal(L.diag, dim1=-2, dim2=-1)
+    return 2.0 * torch.log(dd).sum((-2, -1))

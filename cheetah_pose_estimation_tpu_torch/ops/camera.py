@@ -74,6 +74,18 @@ def _pinhole(ab: torch.Tensor, D: torch.Tensor, jacobian: bool):
     return out, Jd
 
 
+def distort_fisheye(ab: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Equidistant distortion of normalized coords ab (..., 2) by one
+    camera's D (4 coefficients, any shape)."""
+    return _fisheye(ab, D.reshape(-1), False)[0]
+
+
+def distort_pinhole(ab: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Radial polynomial distortion of normalized coords ab (..., 2) by one
+    camera's D (its first 3 coefficients are used, any shape)."""
+    return _pinhole(ab, D.reshape(-1), False)[0]
+
+
 def _project(X, K, D, R, t, distort, jacobian: bool):
     Xc = world_to_cam(X, R, t)
     x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]

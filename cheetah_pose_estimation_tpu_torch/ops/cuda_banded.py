@@ -28,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -52,6 +53,11 @@ launches_by_shape = {}
 build_log = ""
 
 _lib = None
+# the CUDA devices the kernel's shared memory is allowed on, and the lock
+# that the library, that set and the counts share (the trial mesh launches
+# from one host thread per device)
+_ready = set()
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -147,25 +153,35 @@ def solve(diag: torch.Tensor, lower: torch.Tensor, rhs: torch.Tensor
         return x
     work = torch.empty((B, N, BW + 1, D, D), dtype=rhs.dtype,
                        device=rhs.device)
-    with torch.cuda.device(rhs.device):
-        lib = _load()
+    lib = _load(rhs.device)
     launch(lib, diag, lower, rhs, x, work)
-    launches += 1
-    launches_by_shape[B, N] = launches_by_shape.get((B, N), 0) + 1
+    with _lock:
+        launches += 1
+        launches_by_shape[B, N] = launches_by_shape.get((B, N), 0) + 1
     return x
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
-    launches_by_shape.clear()
+    with _lock:
+        launches = 0
+        launches_by_shape.clear()
 
 
-def _load():
-    """The main path's library, built and bound at first use."""
+def _load(device: torch.device):
+    """The main path's library, built and bound at first use, with the
+    kernel's shared memory allowed on ``device`` (once per device)."""
     global _lib
-    if _lib is None:
-        _lib = load_library(build())
+    with _lock, torch.cuda.device(device):
+        index = torch.cuda.current_device()
+        if _lib is None:
+            _lib = load_library(build())
+        elif index not in _ready:
+            err = _lib.banded_solve_init()
+            if err != 0:
+                raise RuntimeError(f"banded_solve kernel setup failed on "
+                                   f"cuda:{index}: CUDA error {err}")
+        _ready.add(index)
     return _lib
 
 

@@ -61,6 +61,12 @@ def redescending_psi(e: torch.Tensor, a=3.0, b=10.0, c=20.0) -> torch.Tensor:
     return torch.where(e >= 0, d, -d)
 
 
+def redescending_smooth(r: torch.Tensor, c) -> torch.Tensor:
+    """The reference's ``redescending_smooth_loss``."""
+    return 0.25 * c**2 * (torch.arctan(r / c) ** 2
+                          + (c * r) ** 2 / (c**4 + r**4))
+
+
 def cauchy(r: torch.Tensor, c) -> torch.Tensor:
     """Cauchy loss c^2 log(1 + (r / c)^2) (JAX ``ops/losses.py:48-49``)."""
     return c**2 * torch.log1p((r / c)**2)
@@ -83,6 +89,11 @@ def huber_psi(e: torch.Tensor, delta) -> torch.Tensor:
     """psi(e) = d huber / d e: e in the core, delta sign(e) in the tail
     (autodiff of ``0.5 * e * e`` gives e exactly)."""
     return torch.where(torch.abs(e) <= delta, e, delta * torch.sign(e))
+
+
+def quadratic(e: torch.Tensor) -> torch.Tensor:
+    """The reference's hand-labeled branch, (w * slack)**2."""
+    return e * e
 
 
 PSI = {"redescending": redescending_psi, "huber": huber_psi}

@@ -53,6 +53,34 @@ def euler_zyx_and_derivative(angles: torch.Tensor, derivative: bool = True
     return R, torch.stack([d_phi, d_theta, d_psi], dim=-1)
 
 
+def euler_zyx_inverse(R: torch.Tensor) -> torch.Tensor:
+    """(phi, theta, psi) (..., 3) from R = Rz(psi) Ry(theta) Rx(phi)
+    (..., 3, 3); valid away from the theta = +-pi/2 gimbal lock."""
+    theta = torch.atan2(-R[..., 2, 0],
+                        torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2))
+    phi = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    psi = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([phi, theta, psi], dim=-1)
+
+
+def _mat(rows):
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rot_y(theta: torch.Tensor) -> torch.Tensor:
+    """(...,) -> (..., 3, 3) rotation about y."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, one = torch.zeros_like(theta), torch.ones_like(theta)
+    return _mat([[c, z, s], [z, one, z], [-s, z, c]])
+
+
+def rot_z(psi: torch.Tensor) -> torch.Tensor:
+    """(...,) -> (..., 3, 3) rotation about z."""
+    c, s = torch.cos(psi), torch.sin(psi)
+    z, one = torch.zeros_like(psi), torch.ones_like(psi)
+    return _mat([[c, -s, z], [s, c, z], [z, z, one]])
+
+
 def euler_zyx_second_derivative(angles: torch.Tensor) -> torch.Tensor:
     """ddR (..., 3, 3, 3, 3) with ``ddR[..., i, j, a, b] = d^2 R[i, j] /
     d angle_a d angle_b``: each angle enters through its own factor of
@@ -117,3 +145,13 @@ def euler_rate_to_body_omega(angles: torch.Tensor, derivative: bool = False):
     dE_phi = mat([[z, z, z], [z, -sf, ct * cf], [z, -cf, -ct * sf]])
     dE_theta = mat([[z, z, -ct], [z, z, -st * sf], [z, z, -st * cf]])
     return E, torch.stack([dE_phi, dE_theta], dim=-1)
+
+
+def euler_rate_to_world_omega(angles: torch.Tensor) -> torch.Tensor:
+    """Ew (..., 3, 3) with ``omega_world = Ew @ [dphi, dtheta, dpsi]``:
+    omega_w = dpsi z + dtheta Rz(psi) y + dphi Rz(psi) Ry(theta) x."""
+    theta, psi = angles[..., 1], angles[..., 2]
+    ct, st = torch.cos(theta), torch.sin(theta)
+    cp, sp = torch.cos(psi), torch.sin(psi)
+    z, one = torch.zeros_like(theta), torch.ones_like(theta)
+    return _mat([[cp * ct, -sp, z], [sp * ct, cp, z], [-st, z, one]])

@@ -10,10 +10,21 @@ finishes only the winner (``make_kinematic_multistart``, the batched
 production solver). The TPU backend crossover (``backend_for``,
 ``CR_MAX_BATCH``) is not ported: the linear solver follows the tensors'
 device.
+
+Several devices: a trial mesh (:func:`trial_mesh`) is a tuple of
+``torch.device``. :func:`shard_batch` splits a batch's leading (trial) axis
+into contiguous equal chunks, one per device, as JAX's
+``NamedSharding(mesh, P(TRIAL_AXIS))`` lays it out; :func:`on_mesh` runs a
+batched solver on every chunk on its own device, one host thread per
+device, and gathers the lanes back in order. Each trial's system stays on
+its device, so no collective is needed: reductions over the trials are
+taken on the host after the gather (:func:`dryrun_multichip`).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +33,7 @@ from ..solver.kinematic import (ARAnchor, CameraSet, KinematicData,
                                 map_data)
 from ..utils.device import DeviceLike, resolve_device
 
+TRIAL_AXIS = "trials"
 HEADING_RESTARTS: Tuple[float, ...] = (0.0, 0.3, -0.3)
 MULTISTART_MARGIN = 0.01
 PROBE_STAGES: Tuple[Tuple[float, int], ...] = ((10.0, 30),)
@@ -254,3 +266,197 @@ def pad_and_stack_kinetic(kds, q_warms: Sequence[np.ndarray],
                                    device=dev),
         tau_anchor_weight=stack("tau_anchor_weight", False),
         ground_z=stack("ground_z", False)), q_warm
+
+
+# ---------------------------------------------------------------------------
+# several devices: the trial mesh
+# ---------------------------------------------------------------------------
+
+Mesh = Tuple[torch.device, ...]
+
+
+def trial_mesh(n_devices: Optional[int] = None,
+               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """1-D mesh over the trial (data-parallel) axis: ``devices`` (default:
+    every CUDA device; raises without one), the first ``n_devices`` of
+    them. A device may appear more than once (several shards on one
+    card, or on the CPU)."""
+    if devices is None:
+        resolve_device(None)
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = tuple(resolve_device(d) for d in devices)
+    if n_devices is not None:
+        devs = devs[:n_devices]
+    if not devs:
+        raise ValueError("a trial mesh needs at least one device")
+    return devs
+
+
+def _map_tree(fn: Callable, tree):
+    """``fn`` on every leaf of a tree of NamedTuples, tuples, lists and
+    dicts."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_map_tree(fn, x) for x in tree])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tree(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _zip_tree(fn: Callable, trees: list):
+    """``fn`` on the matching leaves of trees of one structure."""
+    t = trees[0]
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*[_zip_tree(fn, list(xs)) for xs in zip(*trees)])
+    if isinstance(t, (tuple, list)):
+        return type(t)(_zip_tree(fn, list(xs)) for xs in zip(*trees))
+    if isinstance(t, dict):
+        return {k: _zip_tree(fn, [x[k] for x in trees]) for k in t}
+    return fn(*trees)
+
+
+def shard_batch(batch, mesh: Mesh) -> list:
+    """One shard of ``batch`` per device of ``mesh``: every tensor (or
+    numpy array) with a leading axis split into ``len(mesh)`` contiguous
+    equal chunks, chunk i on ``mesh[i]`` (numpy chunks stay numpy); 0-dim
+    tensors copied to every device, other leaves shared. The leading axis
+    must divide by the mesh's size (``pipeline/batched._pad_group`` pads a
+    group so)."""
+    n = len(mesh)
+
+    def split(x, i):
+        if not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
+            return x
+        if x.ndim == 0:
+            return x.to(mesh[i]) if torch.is_tensor(x) else x
+        if x.shape[0] % n:
+            raise ValueError(f"a leading axis of {x.shape[0]} does not "
+                             f"split over a mesh of {n}")
+        k = x.shape[0] // n
+        part = x[i * k:(i + 1) * k]
+        return part.to(mesh[i]) if torch.is_tensor(part) else part
+
+    return [_map_tree(lambda x, i=i: split(x, i), batch) for i in range(n)]
+
+
+def gather(shards: list, device: DeviceLike = None):
+    """The inverse of :func:`shard_batch` on the outputs of the shards (a
+    list in mesh order): tensors concatenated on their leading axis on
+    ``device`` (default: the first shard's), numpy arrays concatenated,
+    0-dim tensors and other leaves taken from the first shard."""
+    def cat(*xs):
+        x = xs[0]
+        if torch.is_tensor(x) and x.ndim:
+            dev = x.device if device is None else device
+            return torch.cat([y.to(dev) for y in xs])
+        if isinstance(x, np.ndarray) and x.ndim:
+            return np.concatenate(xs)
+        return x
+
+    return _zip_tree(cat, shards)
+
+
+def _first_device(tree) -> Optional[torch.device]:
+    found = []
+    _map_tree(lambda x: found.append(x.device) if torch.is_tensor(x)
+              else None, tree)
+    return found[0] if found else None
+
+
+def on_mesh(fn: Callable, mesh: Mesh, device: DeviceLike = None) -> Callable:
+    """``fn`` (a batched function of trial-axis arguments, such as a
+    solver) over the mesh: ``run(*args)`` shards every argument
+    (:func:`shard_batch`), calls ``fn`` on each shard on its own host
+    thread under ``torch.cuda.device`` of its device (so the kernel
+    launches on that device's current stream), and gathers the outputs in
+    lane order (:func:`gather`) on ``device`` (default: the first tensor
+    argument's). A shard's exception is raised here."""
+    def run(*args):
+        shards = [shard_batch(a, mesh) for a in args]
+
+        def one(i):
+            d = mesh[i]
+            ctx = torch.cuda.device(d) if d.type == "cuda" \
+                else contextlib.nullcontext()
+            with ctx:
+                return fn(*[s[i] for s in shards])
+
+        with ThreadPoolExecutor(len(mesh)) as pool:
+            outs = list(pool.map(one, range(len(mesh))))
+        home = device if device is not None else _first_device(args)
+        return gather(outs, home)
+
+    return run
+
+
+def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,
+                     verbose: bool = True) -> dict:
+    """One short batched solve of each kind over an ``n_devices`` mesh
+    (JAX ``__graft_entry__.dryrun_multichip``): ``n_devices`` procedural
+    trials of 64 frames (``bench_lib.build_dryrun_problems``),
+    the 6-camera multi-view kinematic solve (stages (10, 2), (1, 2)), the
+    monocular data-driven solve (GMM and AR priors, base anchored to the
+    warm start; the same stages) and the physics solve (stance over the
+    middle third, GMM on, stage (1, 2)) from the data-driven solution,
+    each sharded over the mesh (``devices``, default the CUDA devices).
+    The means and maxima over the trials are taken on the host after the
+    gather. Returns the three mean costs (raises if one is not finite)."""
+    from ..models import params as params_mod
+    from ..pipeline import bench_lib
+    from ..pipeline.estimator import DD_BASE_ANCHOR
+    from ..solver import kinematic as kin
+    from ..solver import kinetic as kn
+
+    mesh = trial_mesh(n_devices, devices)
+    if len(mesh) < n_devices:
+        raise ValueError(f"need {n_devices} devices, have {len(mesh)}")
+    home = mesh[0]
+    subject = params_mod.get_subject("acinoset")
+    n_frames = 64
+    datas_mv, datas_mono, q0s = bench_lib.build_dryrun_problems(
+        n_devices, n_frames=n_frames, device=home)
+    stages = ((10.0, 2), (1.0, 2))
+    out = {}
+
+    def report(name, st):
+        cost = st.cost.double().cpu().numpy()
+        out[name] = float(cost.mean())
+        if not np.isfinite(out[name]):
+            raise AssertionError(f"dryrun_multichip: the {name} solve gave "
+                                 f"non-finite costs {cost.tolist()}")
+        if verbose:
+            print(f"dryrun_multichip({n_devices}): {name} ok, mean cost "
+                  f"{out[name]:.3f}, max lam "
+                  f"{float(st.lam.max()):.3g}, on {[str(d) for d in mesh]}")
+
+    bat_mv, q0b = pad_and_stack(datas_mv, q0s, n_frames=n_frames,
+                                device=home)
+    fte_mv = kin.KinematicFTE(kin.KinematicConfig(), subject)
+    report("multi-view kinematic", on_mesh(
+        fte_mv.make_solver(stages=stages), mesh)(q0b, bat_mv))
+    bat_dd, qdb = pad_and_stack(datas_mono, q0s, n_frames=n_frames,
+                                device=home)
+    bat_dd = bat_dd._replace(base_ref=qdb[:, :, :6])
+    fte_dd = kin.KinematicFTE(kin.KinematicConfig(
+        use_gmm=True, use_ar=True, **DD_BASE_ANCHOR), subject)
+    st_dd = on_mesh(fte_dd.make_solver(stages=stages), mesh)(qdb, bat_dd)
+    report("monocular data-driven", st_dd)
+    q_np = st_dd.q.double().cpu().numpy()
+    kds, q_warms = [], []
+    for i, d in enumerate(datas_mono):
+        n = d.meas.shape[0]
+        stance = np.zeros((n, 4))
+        stance[n // 3: 2 * n // 3] = 1.0
+        kds.append(kn.KineticData(
+            base=d, stance=stance, grf_fixed=np.zeros((n, 4)),
+            grf_xy_fixed=np.zeros((n, 4, 4)), use_fixed_grf=np.asarray(0.0),
+            q_warm=q_np[i, :n], tau_anchor=np.zeros((1, kn.dyn.N_TAU)),
+            tau_anchor_weight=np.asarray(0.0), ground_z=np.asarray(0.0)))
+        q_warms.append(q_np[i, :n])
+    kbat, qw = pad_and_stack_kinetic(kds, q_warms, n_frames=n_frames,
+                                     device=home)
+    kfte = kn.KineticFTE(kn.KineticConfig(use_gmm=True), subject)
+    report("physics", on_mesh(kfte.make_solver(stages=((1.0, 2),)), mesh)(
+        qw, kbat))
+    return out

@@ -10,8 +10,13 @@ ground-truth solve, the monocular default mode with the ground-plane depth
 correction and anchored polish (:func:`_anchor_polish`), the data-driven
 mode (:func:`run_data_driven`, also bench.py's stage 1.5, ``bench.py:305-397``)
 and the physics-based mode (:func:`run_physics`, also bench.py's stage 2,
-``bench.py:440-487``). One card serves every group: the JAX package's trial
-mesh (``_resolve_mesh``, ``_pad_group``) is not ported.
+``bench.py:440-487``). With several devices (``mesh``, JAX ``batched.py:
+92-112``) a group is padded by cyclic repetition to a multiple of the mesh
+(:func:`_pad_group`) and each of its solves runs over the trial mesh
+(``parallel/batch.on_mesh``: contiguous chunks of lanes, one per device,
+one host thread each); the host work between the solves sees the whole
+group, and only the real trials are written. With one card ``mesh="auto"``
+is None (:func:`_resolve_mesh`), and the group is solved as one batch.
 """
 from __future__ import annotations
 
@@ -327,7 +332,7 @@ def _trial_objective(fte: kin.KinematicFTE, est, dtype, dev) -> float:
 def _ray_polish(qs: np.ndarray, batched: kin.KinematicData,
                 subject: SubjectParams, cfg_free: kin.KinematicConfig,
                 rays: Sequence[Tuple[int, float, float, np.ndarray,
-                                     np.ndarray]], stages):
+                                     np.ndarray]], stages, mesh=None):
     """The depth correction and anchored polish shared by
     :func:`_anchor_polish` and ``bench_lib.make_anchor_polish``: per trial
     (``rays``: its frame count, fps, ground height and its camera's R and
@@ -335,8 +340,9 @@ def _ray_polish(qs: np.ndarray, batched: kin.KinematicData,
     no shift is left alone. Then one warm-started LM run over the batch
     under ``cfg_free`` with ``POLISH_CFG``'s ground terms on, and per trial
     the polish kept only where its ``cfg_free`` objective is finite and no
-    more than 5 % above the input's. Returns (qs polished (numpy), the
-    per-trial first shift component, the per-trial acceptance)."""
+    more than 5 % above the input's; with a ``mesh`` the polish solve runs
+    over it. Returns (qs polished (numpy), the per-trial first shift
+    component, the per-trial acceptance)."""
     B, Npad = qs.shape[0], qs.shape[1]
     dev, dtype = batched.meas.device, batched.meas.dtype
     tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -356,7 +362,7 @@ def _ray_polish(qs: np.ndarray, batched: kin.KinematicData,
         return qs, shifts, np.zeros(B, bool)
     pol = kin.KinematicFTE(dataclasses.replace(cfg_free, **danchor.POLISH_CFG),
                            subject)
-    st = pol.make_solver(stages=stages)(
+    st = _on(mesh, pol.make_solver(stages=stages), dev)(
         tens(qs_corr), batched._replace(ground_z=tens(gz),
                                         stance_w=tens(stance_b)))
     gate = kin.KinematicFTE(cfg_free, subject)
@@ -369,7 +375,8 @@ def _ray_polish(qs: np.ndarray, batched: kin.KinematicData,
 def _anchor_polish(qs: np.ndarray, ests: List, batched: kin.KinematicData,
                    subject: SubjectParams, cfg_base: kin.KinematicConfig,
                    stages=danchor.POLISH_STAGES,
-                   report: Optional[dict] = None):
+                   report: Optional[dict] = None, mesh=None,
+                   n_real: Optional[int] = None):
     """Monocular ground-plane depth correction and a short anchored polish.
 
     ``qs`` (B, Npad, 54) are the solved trajectories. Per trial on the
@@ -381,9 +388,11 @@ def _anchor_polish(qs: np.ndarray, ests: List, batched: kin.KinematicData,
     anchor off. A trial keeps its polish only when its plain kinematic
     objective (no priors, no anchors) got no more than 5 % worse: the shift
     is reprojection-neutral, so a material increase means the polish
-    diverged against bad stance evidence (:func:`_ray_polish`). With
-    ``report``, the per-trial ray shift and whether the trial changed are
-    recorded in it. Returns (qs polished, whether any trial changed)."""
+    diverged against bad stance evidence (:func:`_ray_polish`; over the
+    ``mesh`` when one is given). With ``report``, the ray shift and
+    whether the trial changed are recorded in it for the first ``n_real``
+    trials (default: all). Returns (qs polished, whether any trial
+    changed)."""
     rays = [(est.data.meas.shape[0], est.scene.fps,
              float(est.params.ground_plane_height),
              est.scene.r_arr[est.scene.cam_idx],
@@ -392,12 +401,46 @@ def _anchor_polish(qs: np.ndarray, ests: List, batched: kin.KinematicData,
                 base_anchor_rot=0.0)
     out, shifts, accept = _ray_polish(
         qs, batched, subject, dataclasses.replace(cfg_base, **free), rays,
-        stages)
+        stages, mesh)
+    n = len(ests) if n_real is None else n_real
     if report is not None:
-        report.setdefault("polish_ray_shift", []).extend(shifts.tolist())
+        report.setdefault("polish_ray_shift", []).extend(
+            shifts[:n].tolist())
         report.setdefault("polish_changed", []).extend(
-            bool(np.any(out[i] != qs[i])) for i in range(len(ests)))
+            bool(np.any(out[i] != qs[i])) for i in range(n))
     return out, bool(accept.any())
+
+
+def _resolve_mesh(mesh, n_trials: int, device: torch.device):
+    """The trial mesh of a group of ``n_trials`` solved on ``device``:
+    ``"auto"`` gives a mesh over min(CUDA devices, n_trials) cards when the
+    run is on the card and more than one card is visible, else None (the
+    group as one batch on ``device``); devices (a sequence) give their
+    mesh (``parallel/batch.trial_mesh``); None gives None."""
+    if isinstance(mesh, str) and mesh == "auto":
+        if device.type != "cuda":
+            return None
+        n = min(torch.cuda.device_count(), max(n_trials, 1))
+        return pbatch.trial_mesh(n) if n > 1 else None
+    return None if mesh is None else pbatch.trial_mesh(devices=mesh)
+
+
+def _pad_group(ests: List, mesh) -> Tuple[List, int]:
+    """Pad a trial group by cyclic repetition so that its batch divides the
+    mesh; returns (padded ests, n_real). The padded lanes are copies of
+    real trials, so every per-lane step stays shape-consistent; only
+    ``ests[:n_real]`` are written."""
+    n_real = len(ests)
+    if mesh is None:
+        return ests, n_real
+    pad = (-n_real) % len(mesh)
+    return ests + [ests[i % n_real] for i in range(pad)], n_real
+
+
+def _on(mesh, fn, device: torch.device):
+    """``fn`` (a batched function of trial-axis arguments) as it is without
+    a mesh, else over the mesh with its outputs gathered on ``device``."""
+    return fn if mesh is None else pbatch.on_mesh(fn, mesh, device)
 
 
 def _launches() -> dict:
@@ -416,7 +459,8 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
                           ground_anchor: bool = True,
                           verbose: bool = True,
                           device: DeviceLike = None,
-                          report: Optional[dict] = None
+                          report: Optional[dict] = None,
+                          mesh: Optional[object] = "auto"
                           ) -> Dict[str, float]:
     """Solve every (mode, trial) of ``test_set`` under ``root_dir`` with
     one batched run per (mode, subject) group on ``device`` (the card by
@@ -432,6 +476,11 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
       ``data_driven_dataset`` and ``motion_prior_rolling`` AR refinements
       (``fte_kinematic_<cam>``);
     * physics-based: :func:`run_physics_batched` (``fte_kinetic_<cam>``).
+
+    ``mesh``: ``"auto"`` (several cards: each group over
+    min(cards, trials) of them; one card or the CPU: none), None, or the
+    mesh's devices (:func:`_resolve_mesh`); a group on a mesh is padded
+    by :func:`_pad_group` and its solves run over the mesh.
 
     ``opt_time_s`` of a trial is its group's solve wall (the chain, scan
     and polish included, host prep and artifact IO not) over the trial
@@ -450,7 +499,7 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
             timings[mode] = run_physics_batched(
                 root_dir, dir_prefix, test_set, cam_overrides=cam_overrides,
                 data_driven_dataset=data_driven_dataset, dtype=dtype,
-                verbose=verbose, device=dev, report=rep)
+                verbose=verbose, device=dev, report=rep, mesh=mesh)
             continue
         monocular = mode != "ground-truth"
         use_priors = mode == "data-driven"
@@ -466,6 +515,8 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
                 cache_dir=data_ops.prior_cache_dir(dset))
         for subject_name, ests in groups.items():
             subject = params_mod.get_subject(subject_name)
+            m = _resolve_mesh(mesh, len(ests), dev)
+            ests, n_real = _pad_group(ests, m)
             datas = [e.data for e in ests]
             batched, q0b = pbatch.pad_and_stack(
                 datas, [e.q0 for e in ests], n_frames=_n_frames(datas),
@@ -479,42 +530,46 @@ def run_monocular_batched(root_dir: str, dir_prefix: str,
             if use_priors:
                 free = kin.KinematicFTE(
                     kin.KinematicConfig(fisheye=True, robust=True), subject)
-                q_free = pbatch.make_kinematic_multistart(free)(q0b,
-                                                                batched).q
-                q, prior_ok, shifts = run_data_driven(
-                    q_free, batched, convert.gmm_prior(
-                        gp, len(ests), device=dev, dtype=dtype),
-                    mm, subject, motion_prior_rolling=motion_prior_rolling)
+                q_free = _on(m, pbatch.make_kinematic_multistart(free),
+                             dev)(q0b, batched).q
+                q, prior_ok, shifts = _on(m, lambda qf, b, g: run_data_driven(
+                    qf, b, g, mm, subject,
+                    motion_prior_rolling=motion_prior_rolling), dev)(
+                        q_free, batched, convert.gmm_prior(
+                            gp, len(ests), device=dev, dtype=dtype))
+                prior_ok, shifts = prior_ok[:n_real], shifts[:n_real]
                 rep.setdefault("prior_ok", []).extend(prior_ok.tolist())
                 rep.setdefault("scan_shifts", []).extend(
                     np.asarray(shifts, float).tolist())
                 if verbose and not prior_ok.all():
                     print(f"[batched] prior gate: {int(prior_ok.sum())}/"
-                          f"{len(ests)} trials accept the pose prior")
+                          f"{n_real} trials accept the pose prior")
                 if verbose and np.any(shifts != 0.0):
                     print("[batched] depth line-scan shifts: "
                           f"{np.round(shifts, 2).tolist()}")
             elif monocular:
                 # the default mode solves cold from the init, escaping bad
                 # heading basins by the multistart
-                q = pbatch.make_kinematic_multistart(fte)(q0b, batched).q
+                q = _on(m, pbatch.make_kinematic_multistart(fte), dev)(
+                    q0b, batched).q
             else:
-                q = fte.make_solver()(q0b, batched).q
+                q = _on(m, fte.make_solver(), dev)(q0b, batched).q
             _sync(dev)
             solve_s = time.time() - t_s
             qs = _np(q)
             if monocular and ground_anchor and not use_priors:
                 t_a = time.time()
                 qs, live = _anchor_polish(qs, ests, batched, subject, cfg,
-                                          report=rep)
+                                          report=rep, mesh=m, n_real=n_real)
                 _sync(dev)
                 solve_s += time.time() - t_a
                 if verbose and live:
                     print("[batched] ground-plane depth anchor applied")
+            ests = ests[:n_real]
             for i, est in enumerate(ests):
                 est.q = qs[i, :est.data.meas.shape[0]]
                 est.obj_cost = _trial_objective(fte, est, dtype, dev)
-                est.opt_time_s = solve_s / max(len(ests), 1)
+                est.opt_time_s = solve_s / max(n_real, 1)
                 cam = est.scene.cam_idx
                 fname = ("fte_kinematic" if not monocular else
                          f"fte_kinematic_{cam}" if use_priors else
@@ -538,16 +593,19 @@ def run_physics_batched(root_dir: str, dir_prefix: str,
                         dtype: torch.dtype = torch.float32,
                         verbose: bool = True,
                         device: DeviceLike = None,
-                        report: Optional[dict] = None) -> float:
+                        report: Optional[dict] = None,
+                        mesh: Optional[object] = "auto") -> float:
     """The physics-based mode over the test set: per trial, the warm start
     read back from the saved data-driven solution, contact detection on it
     written to ``grf/autogen-contact.json`` and read back as the stance
     matrix (pruned on the warm start); then :func:`run_physics` per subject
     group with the GMM pose prior trained from ``data_driven_dataset``, and
     the solved forces (``KineticFTE.forces``) into each trial's ``tau``,
-    ``grf_z`` and ``grf_xy``. Needs the data-driven mode's artifacts. With a
-    ``report`` dict the stance matrices, solve wall and kernel launches go
-    into it. Returns the wall seconds."""
+    ``grf_z`` and ``grf_xy``. Needs the data-driven mode's artifacts. A
+    group on a ``mesh`` (as in :func:`run_monocular_batched`) is padded
+    and its physics solve runs over the mesh. With a ``report`` dict the
+    stance matrices, solve wall and kernel launches go into it. Returns the
+    wall seconds."""
     dev = resolve_device(device)
     t0 = time.time()
     rep: dict = {} if report is None else report
@@ -557,6 +615,8 @@ def run_physics_batched(root_dir: str, dir_prefix: str,
     n_total = 0
     for subject_name, ests in groups.items():
         subject = params_mod.get_subject(subject_name)
+        m = _resolve_mesh(mesh, len(ests), dev)
+        ests, n_real = _pad_group(ests, m)
         q_warms, stances = [], []
         for est in ests:
             d = est_mod._load_warm_start(est, True, dir_prefix)
@@ -580,23 +640,26 @@ def run_physics_batched(root_dir: str, dir_prefix: str,
             dtype=dtype, device=dev)
         _sync(dev)
         t_s = time.time()
-        st, kbat = run_physics(
-            q_warm_b, datas, [e.scene.fps for e in ests], subject, gp,
-            ground_heights=[e.params.ground_plane_height for e in ests],
-            stances=stances)
+        st, kbat = _on(m, lambda qw, lanes: run_physics(
+            qw, [datas[i] for i in lanes], [ests[i].scene.fps for i in lanes],
+            subject, gp, ground_heights=[
+                ests[i].params.ground_plane_height for i in lanes],
+            stances=[stances[i] for i in lanes]), dev)(
+                q_warm_b, np.arange(len(ests)))
         _sync(dev)
         solve_s = time.time() - t_s
         fte = kn.KineticFTE(kn.KineticConfig(use_gmm=True), subject)
         tau_b, gz_b, gxy_b = [_np(x) for x in fte.forces(st.q, kbat)]
         obj = _np(fte.objective(st.q, kbat))
         qs = _np(st.q)
+        ests, stances = ests[:n_real], stances[:n_real]
         for i, est in enumerate(ests):
             n = est.data.meas.shape[0]
             est.q = qs[i, :n]
             est.tau, est.grf_z, est.grf_xy = tau_b[i, :n], gz_b[i, :n], \
                 gxy_b[i, :n]
             est.obj_cost = float(obj[i])
-            est.opt_time_s = solve_s / max(len(ests), 1)
+            est.opt_time_s = solve_s / max(n_real, 1)
             est.save(f"fte_kinetic_{est.scene.cam_idx}",
                      out_dir_prefix=dir_prefix)
         rep.setdefault("trials", []).extend(e.data_path for e in ests)

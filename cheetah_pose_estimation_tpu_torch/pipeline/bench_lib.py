@@ -3,8 +3,8 @@
 Port of ``cheetah_pose_estimation_tpu/pipeline/bench_lib.py``: batched
 monocular default-mode problems over procedural gallops (the fallback of
 ``load_reference_trajectories`` when the reference test set is absent),
-the physics stage's problems (``build_physics_batch``), the per-trial
-quality metrics, the trials' names (``reference_trial_paths``) and the
+the physics stage's problems (``build_physics_batch``), the multi-device dry run's
+problems (``build_dryrun_problems``), the per-trial quality metrics, the trials' names (``reference_trial_paths``) and the
 bench's ground-plane depth anchor (``make_anchor_polish``). Problem
 building is host work in numpy/float64; ``build_batch`` and
 ``build_physics_batch`` put the stacked batch on ``device``.
@@ -96,6 +96,38 @@ def empty_priors(N: int):
     gmmp = kin.GMMPrior(np.zeros((1, 22)), np.eye(22)[None], np.zeros((1,)))
     ar = kin.ARAnchor(np.zeros((N, 28)), np.zeros(28), np.zeros(N))
     return gmmp, ar
+
+
+def build_dryrun_problems(n: int, n_frames: int = 64,
+                          device: DeviceLike = None):
+    """``n`` problems at full width for the multi-device dry run
+    (``parallel/batch.dryrun_multichip``; JAX ``bench_lib.py:174-230``):
+    per trial the procedural gallop ``i mod 10`` repeated to ``n_frames``
+    frames, its monocular problem (camera 2) with the data-driven priors on
+    (the GMM, and AR anchors predicted from q0 with the model's weights),
+    the same trial's 6-camera multi-view problem without priors, and q0.
+    The priors are :func:`train_priors` on the procedural pose tables,
+    trained on ``device``. Returns (multi-view datas, monocular datas,
+    q0s), numpy leaves."""
+    priors = train_priors(procedural_pose_table(TRAIN_SEEDS),
+                          procedural_pose_table(VAL_SEEDS), device=device)
+    trajs = load_reference_trajectories()
+    datas_mv, datas_mono, q0s = [], [], []
+    for i in range(n):
+        q_gt, name, fps = trajs[i % len(trajs)]
+        reps = -(-n_frames // q_gt.shape[0])
+        q_gt = np.concatenate([q_gt] * reps)[:n_frames]
+        mono, q0, _ = build_monocular_problem(q_gt, name, fps, seed=i,
+                                              cam_idx=2)
+        y_pred, valid = armodel.anchor_predictions(
+            priors.motion_model, sk.relative_pose(torch.as_tensor(q0))
+            .numpy())
+        datas_mono.append(mono._replace(gmm=priors.gmm_prior, ar=kin.ARAnchor(
+            y_pred, armodel.motion_weights(priors.motion_model), valid)))
+        q0s.append(q0)
+        datas_mv.append(build_monocular_problem(q_gt, name, fps, seed=i,
+                                                cam_idx=None)[0])
+    return datas_mv, datas_mono, q0s
 
 
 def build_monocular_problem(q_gt: np.ndarray, subject_name: str, fps: float,

@@ -22,6 +22,7 @@ import torch
 
 from ..dynamics.eom import FOOT_NAMES, POLYGON_D, foot_points
 from ..models.params import SubjectParams
+from ..utils.device import FORWARD_AD
 from . import grf_io
 
 
@@ -72,8 +73,9 @@ def foot_kinematics(q: np.ndarray, dq: np.ndarray,
     (float64, on the host)."""
     qt = torch.as_tensor(np.asarray(q), dtype=torch.float64)
     dqt = torch.as_tensor(np.asarray(dq), dtype=torch.float64)
-    pts, vel = torch.func.jvp(lambda qq: foot_points(qq, subject), (qt,),
-                              (dqt,))
+    with FORWARD_AD:
+        pts, vel = torch.func.jvp(lambda qq: foot_points(qq, subject),
+                                  (qt,), (dqt,))
     return pts[..., 2].numpy(), vel.numpy()
 
 

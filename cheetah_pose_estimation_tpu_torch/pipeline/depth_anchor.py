@@ -181,9 +181,11 @@ def scale_depth_shift(q: np.ndarray, subject: SubjectParams,
                       K: np.ndarray, D_dist: np.ndarray,
                       R_cam: np.ndarray, t_cam: np.ndarray,
                       min_frames: int = 16,
-                      max_spread_ratio: float = 0.6) -> float:
+                      max_spread_ratio: float = 0.6,
+                      fisheye: bool = True) -> float:
     """Per-trial depth shift (metres along the viewing ray of a fisheye
-    camera, + away from it) implied by apparent body scale: with fixed
+    camera, or a pinhole one with ``fisheye=False``, + away from it)
+    implied by apparent body scale: with fixed
     segment lengths the projected marker spread scales as 1/depth, so per
     frame shift = d_rec (size_rec / size_meas - 1), sizes being the weighted
     RMS spreads of the gated detections and of the reprojected markers. The
@@ -194,7 +196,8 @@ def scale_depth_shift(q: np.ndarray, subject: SubjectParams,
     q = np.asarray(q, np.float64)
     N = q.shape[0]
     pts = sk.fk_markers(torch.as_tensor(q), subject).reshape(-1, 3)
-    uv_rec = cam_ops.project_fisheye(
+    proj = cam_ops.project_fisheye if fisheye else cam_ops.project_pinhole
+    uv_rec = proj(
         pts, *[torch.as_tensor(np.asarray(a, np.float64))
                for a in (K, D_dist, R_cam, t_cam)]).numpy().reshape(N, -1, 2)
     meas = np.asarray(meas, np.float64)       # (N, L, 2, W) or (N, L, 2)
@@ -235,23 +238,38 @@ def scale_depth_shift(q: np.ndarray, subject: SubjectParams,
     return float(np.clip(med, -MAX_SHIFT_M, MAX_SHIFT_M))
 
 
-def scale_median(q: np.ndarray, subject: SubjectParams,
-                 meas: np.ndarray, weight: np.ndarray,
-                 K: np.ndarray, D_dist: np.ndarray,
-                 R_cam: np.ndarray, t_cam: np.ndarray) -> float:
-    """Raw signed body-scale median (metres along the ray): no spread gate,
-    no noise floor, 8 frames suffice. The line-scan uses its sign (veto) and
-    its magnitude (candidate bound)."""
-    return scale_depth_shift(q, subject, meas, weight, K, D_dist, R_cam,
-                             t_cam, max_spread_ratio=1e9, min_frames=8)
-
-
 # candidate depth offsets of the line-scan (metres along the rays), the
 # relative cost win a candidate needs over the zero shift, and the
 # body-scale median below which the scale constraint is off
 SCAN_SHIFTS = (-0.5, -0.4, -0.3, -0.2, -0.1, 0.0, 0.1)
 SCAN_MARGIN = 0.01
 DEAD_ZONE_M = 0.05
+
+
+def scale_median(q: np.ndarray, subject: SubjectParams,
+                 meas: np.ndarray, weight: np.ndarray,
+                 K: np.ndarray, D_dist: np.ndarray,
+                 R_cam: np.ndarray, t_cam: np.ndarray,
+                 fisheye: bool = True) -> float:
+    """Raw signed body-scale median (metres along the ray): no spread gate,
+    no noise floor, 8 frames suffice. The line-scan uses its sign (veto) and
+    its magnitude (candidate bound)."""
+    return scale_depth_shift(q, subject, meas, weight, K, D_dist, R_cam,
+                             t_cam, max_spread_ratio=1e9, min_frames=8,
+                             fisheye=fisheye)
+
+
+def scale_shift_sign(q: np.ndarray, subject: SubjectParams,
+                     meas: np.ndarray, weight: np.ndarray,
+                     K: np.ndarray, D_dist: np.ndarray,
+                     R_cam: np.ndarray, t_cam: np.ndarray,
+                     fisheye: bool = True,
+                     dead_zone_m: float = DEAD_ZONE_M) -> float:
+    """The body-scale channel's direction vote (-1, 0 or +1): the sign of
+    :func:`scale_median`, 0 inside +-``dead_zone_m``."""
+    med = scale_median(q, subject, meas, weight, K, D_dist, R_cam, t_cam,
+                       fisheye=fisheye)
+    return 0.0 if abs(med) <= dead_zone_m else float(np.sign(med))
 
 
 def make_depth_linescan(subject: SubjectParams,

@@ -232,6 +232,11 @@ class CheetahEstimator:
         return (cam_ops.project_pinhole if self.params.kinetic_dataset
                 else cam_ops.project_fisheye)
 
+    def get_objective_cost(self) -> float:
+        """The saved objective, NaN before a solve."""
+        return float(self.obj_cost) if self.obj_cost is not None \
+            else float("nan")
+
     def save(self, out_dir_name: str, fname: str = "fte",
              out_dir_prefix: Optional[str] = None) -> str:
         """Write fte.pickle and the per-camera reprojections

@@ -23,6 +23,14 @@ from ..utils.device import DeviceLike, resolve_device
 from . import dataset as ds
 
 
+def unique_id(values: Tuple) -> str:
+    """The md5 hex digest of the values' ``str`` forms, in order."""
+    m = hashlib.md5()
+    for s in [str(x) for x in values]:
+        m.update(s.encode())
+    return m.hexdigest()
+
+
 def fit_linear(X: np.ndarray, y: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """OLS with intercept: returns (coef (d_out, d_in), intercept (d_out,))."""
     Xm, ym = X.mean(axis=0), y.mean(axis=0)

@@ -52,7 +52,7 @@ from ..models import skeleton as sk
 from ..models.params import SubjectParams
 from ..ops import banded
 from ..ops.banded import chol_nan
-from ..utils.device import Tables
+from ..utils.device import FORWARD_AD, Tables
 from . import gn
 from . import kinematic as kin
 
@@ -329,14 +329,16 @@ class KineticFTE:
             return _mv(M, ddq) + cg
 
         flat = lambda x: x.reshape((B * N,) + x.shape[2:])
-        D1, Cd = torch.func.vmap(torch.func.jacfwd(F, argnums=(0, 1)))(
-            flat(q_t), flat(dq_t), flat(ddq_t))
+        with FORWARD_AD:
+            D1, Cd = torch.func.vmap(torch.func.jacfwd(F, argnums=(0, 1)))(
+                flat(q_t), flat(dq_t), flat(ddq_t))
         D1, Cd = (x.reshape(B, N, NQ, NQ) for x in (D1, Cd))
         M = dyn.mass_matrix(q_t, subject)
         _, _, _, _, (A_act, sc2, L2, g_all) = self._frame_solve(q3, data)
-        D2 = torch.func.vmap(torch.func.jacfwd(
-            lambda qq, g: _mv(self._force_columns(qq), g)))(
-                flat(q_t), flat(g_all)).reshape(B, N, NQ, NQ)
+        with FORWARD_AD:
+            D2 = torch.func.vmap(torch.func.jacfwd(
+                lambda qq, g: _mv(self._force_columns(qq), g)))(
+                    flat(q_t), flat(g_all)).reshape(B, N, NQ, NQ)
         fs = self.force_scale
         h2 = h * h
         J0 = (M / h2 + Cd / h + D1) / fs - D2

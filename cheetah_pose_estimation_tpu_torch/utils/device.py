@@ -11,6 +11,7 @@ off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Callable, Dict, Hashable, Optional, Union
 
@@ -18,6 +19,12 @@ import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+# torch's forward-mode AD levels (``torch.func.jvp``, ``jacfwd``) are
+# process-wide: two threads inside them at once delete each other's level.
+# The trial mesh (``parallel/batch.on_mesh``) solves its shards on host
+# threads, so every forward-mode section holds this lock.
+FORWARD_AD = threading.RLock()
 
 
 def full_precision() -> None:

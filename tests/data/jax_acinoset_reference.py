@@ -96,15 +96,16 @@ def exact_csv_reader():
 
 
 def tree_digests(root, paths):
-    """Per trial: the DLC tables' digest, and per camera the pairwise
-    pickles' (both read as the port reads them)."""
+    """Per trial: the DLC tables' digest (the exact read) and per camera
+    the pairwise pickles' (as the port reads them)."""
     from chip_smoke import digest, ppm_digest
 
     from cheetah_pose_estimation_tpu_torch.data import io as pio
 
     out = {}
     for p in paths:
-        xy, lik, _ = pio.load_dlc_points(os.path.join(root, p, "dlc"))
+        xy, lik, _ = pio.load_dlc_points(os.path.join(root, p, "dlc"),
+                                         use_native=False)
         out[p] = dict(digest(xy, lik),
                       ppm=ppm_digest(os.path.join(root, p)))
     return out

@@ -36,9 +36,17 @@ Writes ``tests/data/jax_serial_f32.json``:
 * ``port_tree``: the same (``tree``, ``modes``, ``decisions``,
   ``wall_s_cpu``) for the run on the port's rendering.
 
+* ``port_tree_exact`` (``--tree port_exact`` only): the run on the port's
+  rendering with the tables read exactly (pandas, ``use_native=False``)
+  instead of by the C++ parser that the CLI uses on CSV-only trees: how
+  far the reference moves under its input's float32 read round-off
+  (<= 6.1e-5 px on this tree).
+
 ``--trials 1 --out /tmp/x.json`` checks the script on one trial;
-``--tree own`` or ``--tree port`` runs one rendering and writes a partial
-record, and ``--merge own.json port.json`` joins two partial records.
+``--tree own``, ``--tree port`` or ``--tree port_exact`` runs one
+rendering and writes a partial record, and ``--merge own.json port.json``
+joins two partial records (``--merge_exact OUT.json PART.json`` adds a
+``port_tree_exact`` record to a joined one).
 """
 import argparse
 import contextlib
@@ -206,11 +214,22 @@ def main():
                                                   "jax_serial_f32.json"))
     ap.add_argument("--keep", default=None,
                     help="keep the trees and the outputs in this directory")
-    ap.add_argument("--tree", choices=("own", "port", "both"),
-                    default="both")
+    ap.add_argument("--tree", choices=("own", "port", "both",
+                                       "port_exact"), default="both")
     ap.add_argument("--merge", nargs=2, default=None,
                     metavar=("OWN_JSON", "PORT_JSON"))
+    ap.add_argument("--merge_exact", nargs=2, default=None,
+                    metavar=("JOINED_JSON", "EXACT_JSON"))
     args = ap.parse_args()
+    if args.merge_exact:
+        with open(args.merge_exact[0], encoding="utf-8") as f:
+            result = json.load(f)
+        with open(args.merge_exact[1], encoding="utf-8") as f:
+            result["port_tree_exact"] = json.load(f)["port_tree_exact"]
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(result, f, indent=1, sort_keys=True)
+        print(f"wrote {args.out}")
+        return
     if args.merge:
         with open(args.merge[0], encoding="utf-8") as f:
             result = json.load(f)
@@ -310,15 +329,20 @@ def main():
                       decisions=own["decisions"], stdout=own["stdout"],
                       artifacts=artifacts(out_dir))
         result["wall_s_cpu"].update(own["wall_s_cpu"])
-    if args.tree in ("port", "both"):
+    if args.tree in ("port", "both", "port_exact"):
         from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset \
             as port_run_dataset
         root_port = os.path.join(work, "videos_port")
         out_port = os.path.join(work, "out_port")
         port_run_dataset.main(["--materialize_synthetic", "--root_dir",
                                root_port])
-        result["port_tree"] = {"tree": digests(root_port),
-                               **run_cli(root_port, out_port)}
+        key = "port_tree"
+        if args.tree == "port_exact":
+            from jax_acinoset_reference import exact_csv_reader
+            exact_csv_reader()
+            key = "port_tree_exact"
+        result[key] = {"tree": digests(root_port),
+                       **run_cli(root_port, out_port)}
     with open(args.out, "w", encoding="utf-8") as f:
         json.dump(result, f, indent=1, sort_keys=True)
     print(f"wrote {args.out}")

@@ -73,7 +73,7 @@ def test_dlc_points_across_packages(tmp_path):
                            lik)
     # the JAX tree also holds .h5 tables; the port reads its .csv siblings
     assert (tmp_path / "jax" / "cam1.h5").exists()
-    pj = tio.load_dlc_points(str(tmp_path / "jax"), 3)
+    pj = tio.load_dlc_points(str(tmp_path / "jax"), 3, use_native=False)
     jp = jio.load_dlc_points(str(tmp_path / "port"), 3, use_native=False)
     jj = jio.load_dlc_points(str(tmp_path / "jax"), 3, use_native=False)
     assert pj[2] == jp[2] == jj[2] == list(MARKERS)

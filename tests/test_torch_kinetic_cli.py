@@ -168,7 +168,8 @@ def test_kinetic_tree_matches_jax(trees):
     for p in made["port"]:
         xa, la, _ = jio.load_dlc_points(os.path.join(roots["jax"], p, "dlc"),
                                         use_native=False)
-        xb, lb, _ = tio.load_dlc_points(os.path.join(roots["port"], p, "dlc"))
+        xb, lb, _ = tio.load_dlc_points(os.path.join(roots["port"], p, "dlc"),
+                                        use_native=False)
         assert xa.shape == xb.shape == (50, 4, 24, 2)
         assert np.array_equal(np.isnan(xa), np.isnan(xb))
         assert np.nanmax(np.abs(xa - xb)) <= 1e-9

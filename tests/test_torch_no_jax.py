@@ -20,7 +20,10 @@ remaining prior options (a PCA fit, a PCA-space AR model, a line-scan with
 a finish), the three response studies (the forced-vs-gated bench and a
 deadband row on two 16-frame trials) and the results layer
 (``compare_traj_error``, the power traces, plots that report False with
-matplotlib blocked too); then check ``sys.modules``. No
+matplotlib blocked too), the C++ DLC reader (``native/``), and the two
+examples (``examples/sharded_batch_torch.py`` on a 2-entry CPU mesh,
+``examples/single_trial_torch.py`` with tiny schedules); then check
+``sys.modules``. No
 module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
 own copies of the tables it needs."""
 import os
@@ -245,6 +248,27 @@ SCRIPT = textwrap.dedent("""
     from cheetah_pose_estimation_tpu_torch.pipeline import visualize
     assert visualize.render_trial(os.path.join(
         base, "fte_kinetic_2", "fte.pickle")) is False
+    # the C++ reader, the trial mesh and the two examples (tiny schedules)
+    from cheetah_pose_estimation_tpu_torch import native
+    assert native.available()
+    xn, _, _ = io.load_dlc_points(os.path.join(tmp, d, c, t, "dlc"), 6)
+    xe, _, _ = io.load_dlc_points(os.path.join(tmp, d, c, t, "dlc"), 6,
+                                  use_native=False)
+    assert 0 < np.nanmax(np.abs(xn - xe)) < 1e-3
+    import importlib.util
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(os.getcwd(), "examples", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    sh = example("sharded_batch_torch").run(
+        2, trials=2, frames=16, cpu=True, verbose=False)
+    assert sh["mesh"] == ["cpu", "cpu"] and np.isfinite(sh["mpe_mm"]).all()
+    st = example("single_trial_torch").run(os.path.join(tmp, "single"),
+                                           device="cpu", verbose=False)
+    assert np.isfinite(st["mv_mpe_mm"]) and sorted(st["monocular"]) == [
+        "data-driven", "single view"]
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
                                          "matplotlib",

@@ -122,11 +122,8 @@ def test_contact_detection_analysis(case):
 
 
 def test_determine_dlc_performance(tmp_path, monkeypatch):
-    """The JAX package reads the CSV tables through pandas here (its C++
-    parser rounds pixels by ~6e-5)."""
-    d = list(jio.load_dlc_points.__defaults__)
-    d[-1] = False
-    monkeypatch.setattr(jio.load_dlc_points, "__defaults__", tuple(d))
+    """Both packages read the CSV tables by their default read (the C++
+    parser, float32), then both through the exact reader (JAX: pandas)."""
     rng = np.random.default_rng(6)
     n, L = 15, 24
     for sub, start in (("dlc", 0), ("hand", 2)):
@@ -137,11 +134,18 @@ def test_determine_dlc_performance(tmp_path, monkeypatch):
                 lik = (lik > 0.3).astype(float)
             tio.save_dlc_table(str(tmp_path / sub / f"cam{c + 1}.csv"), xy,
                                lik, start_frame=start)
-    for thresh in (0.5, 0.9):
-        _same_dict(TR.determine_dlc_performance(
-            str(tmp_path / "dlc"), str(tmp_path / "hand"), thresh),
-            JR.determine_dlc_performance(str(tmp_path / "dlc"),
-                                         str(tmp_path / "hand"), thresh))
+    for exact in (False, True):
+        if exact:
+            for mod in (jio, tio):
+                d = list(mod.load_dlc_points.__defaults__)
+                d[-1] = False
+                monkeypatch.setattr(mod.load_dlc_points, "__defaults__",
+                                    tuple(d))
+        for thresh in (0.5, 0.9):
+            _same_dict(TR.determine_dlc_performance(
+                str(tmp_path / "dlc"), str(tmp_path / "hand"), thresh),
+                JR.determine_dlc_performance(str(tmp_path / "dlc"),
+                                             str(tmp_path / "hand"), thresh))
 
 
 def test_plot_cost_functions(tmp_path, request):

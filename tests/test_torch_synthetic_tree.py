@@ -7,7 +7,9 @@ same numpy arithmetic (identical). Rendered pixels go through two float64
 camera models (<= 1e-10 px, observed ~1e-12); every random decision and
 every likelihood is identical, so the likelihood gate patterns are equal.
 The tree digest chip_smoke holds the port to agrees on the two trees (the
-same gate md5; projections within 1e-10 px).
+same gate md5; projections within 1e-10 px). The port reads the trees with
+its exact reader (``use_native=False``): its default C++ read rounds the
+pixels to float32, as the JAX package's default read does.
 """
 import importlib.util
 import os
@@ -82,8 +84,8 @@ def test_write_trial_dir(trials, tmp_path):
                                               for c in range(1, 7)]
     for name in ("metadata.json", "extrinsic_calib/6_cam_scene_sba.json"):
         assert (td / name).read_text() == (jd / name).read_text()
-    a = tio.load_dlc_points(str(jd / "dlc"), 6)
-    b = tio.load_dlc_points(str(td / "dlc"), 6)
+    a = tio.load_dlc_points(str(jd / "dlc"), 6, use_native=False)
+    b = tio.load_dlc_points(str(td / "dlc"), 6, use_native=False)
     assert np.array_equal(a[1], b[1])
     assert np.abs(a[0] - b[0]).max() <= 1e-10
     for c in range(1, 7):
@@ -112,8 +114,10 @@ def test_materialized_trees_match(trees):
     root, paths = trees
     for p in paths:
         jd, td = root / "jax" / p, root / "port" / p
-        xj, lj, _ = tio.load_dlc_points(str(jd / "dlc"), 6)
-        xt, lt, _ = tio.load_dlc_points(str(td / "dlc"), 6)
+        xj, lj, _ = tio.load_dlc_points(str(jd / "dlc"), 6,
+                                        use_native=False)
+        xt, lt, _ = tio.load_dlc_points(str(td / "dlc"), 6,
+                                        use_native=False)
         assert np.array_equal(lj, lt)
         assert np.array_equal(lj > 0.5, lt > 0.5)
         assert np.abs(xj - xt).max() <= 1e-10
@@ -146,7 +150,8 @@ def test_tree_digests_agree(trees):
     for p in paths:
         xj, lj, _ = jio.load_dlc_points(str(root / "jax" / p / "dlc"), 6,
                                         use_native=False)
-        xt, lt, _ = tio.load_dlc_points(str(root / "port" / p / "dlc"), 6)
+        xt, lt, _ = tio.load_dlc_points(str(root / "port" / p / "dlc"), 6,
+                                        use_native=False)
         dj, dt = ref.digest(xj, lj), ref.digest(xt, lt)
         assert dj["gate_md5"] == dt["gate_md5"]
         assert dj["n_gated"] == dt["n_gated"] and dj["shape"] == dt["shape"]

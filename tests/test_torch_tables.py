@@ -37,6 +37,12 @@ def test_link_tables_equal_jax():
     assert sorted(tparams.PARAMETERS) == sorted(jparams.PARAMETERS)
 
 
+def test_q_slices_equal_jax():
+    for link in range(tparams.N_LINKS):
+        assert tparams.q_slice(link) == jparams.q_slice(link)
+        assert tparams.angle_slice(link) == jparams.angle_slice(link)
+
+
 def test_noise_tables_equal_jax():
     for name in ("R_BASE", "_R_PW1", "_R_PW2", "R_PW", "_Q_STD", "Q",
                  "EOM_SLACK_FLOOR", "KINEMATIC_M"):
