@@ -8,27 +8,36 @@ same formats, so each package reads the other's trees:
   and extrinsics;
 * ``metadata.json``: start/end frame, cam_sync offsets, ground plane height,
   monocular camera;
-* DLC prediction tables ``dlc/cam*.csv`` with the 3-level column header
-  (scorer, bodyparts, {x, y, likelihood}) that pandas writes for a
-  MultiIndex: one header row per level, each headed by the level's name, the
-  frame index in column 0, floats as ``repr`` and NaN as an empty field;
+* DLC prediction tables ``dlc/cam*.h5`` and ``dlc/cam*.csv`` with the
+  3-level columns (scorer, bodyparts, {x, y, likelihood}); as CSV, the
+  header that pandas writes for a MultiIndex: one header row per level,
+  each headed by the level's name, the frame index in column 0, floats as
+  ``repr`` and NaN as an empty field;
 * ``fte.pickle`` with keys positions/x/dx/ddx/q/dq/ddq/com_pos/com_vel/tau/
   meas_err/obj_cost/processing_time_s/start_frame;
 * ``cam<i>_fte.csv`` reprojections with the 2-level (bodyparts, coords)
   header (read back with :func:`load_reprojection_table`).
 
-A trial's DLC tables are read as the JAX package reads them by default:
-CSV tables by the C++ reader of ``native/`` (float32 pixels and
-likelihoods, bit for bit JAX's read), and a directory that also holds
-``.h5`` tables (a tree the JAX package wrote) exactly, in float64, from
-their ``.csv`` siblings (JAX reads the ``.h5`` tables exactly, and the
-``.csv`` holds the same values). ``load_dlc_points(..., use_native=False)``
-always reads exactly, with the numpy reader (:func:`read_table`), as the
-JAX package's pandas reader does.
+The trees the port writes hold CSV tables only (the JAX package writes a
+``.h5`` beside each): its JAX references were solved on CSV-only trees.
 
-The ``.h5`` forms are neither read nor written: there is no HDF5 reader
-here. The JAX writer puts a ``.csv`` beside every ``.h5`` it writes, so its
-trees are readable; a trial directory that holds only ``.h5`` tables raises.
+The ``.h5`` forms are read and written by :mod:`.hdf5` (numpy, ``struct``
+and ``zlib``; no h5py, PyTables or pandas): :func:`load_pandas_h5` reads
+pandas' PyTables "table" format (DeepLabCut's predictions, the reference's
+pose datasets) and its "fixed" format, :func:`write_pandas_h5` writes the
+"table" format as the JAX package does.
+
+A trial's DLC tables are read as the JAX package reads them: ``.h5``
+tables first where the directory holds any (exactly, in float64; a
+directory with both forms reads the ``.h5``, whose values a JAX tree's
+``.csv`` siblings hold too), else the CSV tables, by the C++ reader of
+``native/`` (float32 pixels and likelihoods, bit for bit JAX's default
+read) or, with ``load_dlc_points(..., use_native=False)``, exactly by the
+numpy reader (:func:`read_table`), as the JAX package's pandas reader
+reads them. A ``.h5`` path whose file does not exist reads the ``.csv``
+beside it; one that exists and fails to read raises (the JAX package falls
+back to the ``.csv`` on any error instead; here a reader fault cannot
+hide).
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import json
 import os
 import pickle
 from glob import glob
+from io import BytesIO
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -186,37 +196,135 @@ DLC_LEVELS = ("scorer", "bodyparts", "coords")
 XYL = ("x", "y", "likelihood")
 
 
+def _label_tuple(c) -> tuple:
+    """A column label as the JAX reader decodes it: bytes to str, inside
+    a tuple too; a flat label as a 1-tuple."""
+    dec = lambda x: x.decode() if isinstance(x, bytes) else x
+    return tuple(dec(x) for x in c) if isinstance(c, tuple) else (dec(c),)
+
+
+class _LabelUnpickler(pickle.Unpickler):
+    """Unpickles column labels and nothing else: builtin containers,
+    strings and numbers, and numpy scalars (labels of a numpy dtype)."""
+    ALLOWED = {("builtins", "list"), ("builtins", "tuple"),
+               ("_codecs", "encode"),
+               ("numpy.core.multiarray", "scalar"),
+               ("numpy._core.multiarray", "scalar"), ("numpy", "dtype")}
+
+    def find_class(self, module, name):
+        if (module, name) not in self.ALLOWED:
+            raise pickle.UnpicklingError(
+                f"column labels may not hold {module}.{name}")
+        return super().find_class(module, name)
+
+
+def load_pandas_h5(fpath: str) -> Table:
+    """A pandas-written HDF5 table (JAX ``data/io.py:155-200``), read by
+    :mod:`.hdf5`: the PyTables "table" format (``<key>/table``, a compound
+    dataset of ``index`` and ``values_block_*`` fields, the column labels
+    pickled in the group's ``non_index_axes``) that DeepLabCut and the
+    reference's datasets use, and the "fixed" format (``axis0`` or
+    ``axis0_level*``/``axis0_label*``, ``axis1``, ``block0_values``). The
+    first key of the file is read. Labels are decoded as the JAX reader
+    decodes them; 3-level labels get the DLC level names, others empty
+    names. Only ``non_index_axes`` is unpickled, and only into labels
+    (:class:`_LabelUnpickler`)."""
+    from . import hdf5
+
+    with hdf5.File(fpath) as f:
+        g = f[f.keys()[0]]
+        if "table" in g:
+            t = g["table"][...]
+            index = t["index"]
+            values = np.concatenate(
+                [t[n].reshape(len(t), -1) for n in t.dtype.names
+                 if n.startswith("values")], axis=1)
+            raw = g.attrs["non_index_axes"]
+            cols = _LabelUnpickler(BytesIO(bytes(raw))).load()[0][1]
+        else:
+            index = g["axis1"][...]
+            values = g["block0_values"][...]
+            nlev = sum(1 for k in g.keys() if k.startswith("axis0_level"))
+            if nlev:
+                levels = [[_label_tuple(v)[0]
+                           for v in g[f"axis0_level{i}"][...]]
+                          for i in range(nlev)]
+                labels = [g[f"axis0_label{i}"][...] for i in range(nlev)]
+                cols = [tuple(levels[i][labels[i][j]] for i in range(nlev))
+                        for j in range(len(labels[0]))]
+            else:
+                cols = list(g["axis0"][...])
+    columns = [_label_tuple(c) for c in cols]
+    nlev = len(columns[0]) if columns else 1
+    names = DLC_LEVELS if nlev == 3 else ("",) * nlev
+    return Table(np.array(index), columns, values, names)
+
+
+def write_pandas_h5(fpath: str, table: Table,
+                    key: str = "df_with_missing") -> None:
+    """Write ``table`` in pandas' PyTables "table" layout as the JAX package
+    writes it (JAX ``data/io.py:125-153``): group ``key`` with the pandas
+    attributes (labels pickled, protocol 0, into ``non_index_axes``), and
+    a contiguous compound dataset ``table`` of ``index`` (int64) and
+    ``values_block_0`` (float64, one entry per column)."""
+    from . import hdf5
+
+    values = np.asarray(table.values, np.float64)
+    n = len(table.index)
+    arr = np.empty(n, [("index", "<i8"),
+                       ("values_block_0", "<f8", (values.shape[1],))])
+    arr["index"] = np.asarray(table.index, np.int64)
+    arr["values_block_0"] = values.reshape(n, -1)
+    cols = [c if len(c) > 1 else c[0] for c in table.columns]
+    attrs = {
+        "pandas_type": np.bytes_(b"frame_table"),
+        "table_type": np.bytes_(b"appendable_frame"),
+        "levels": np.int64(len(table.names)),
+        "non_index_axes": np.bytes_(pickle.dumps([(1, cols)], protocol=0)),
+        "index_cols": np.bytes_(pickle.dumps([(0, "index")], protocol=0)),
+        "encoding": np.bytes_(b"UTF-8")}
+    os.makedirs(os.path.dirname(fpath) or ".", exist_ok=True)
+    hdf5.write(fpath, hdf5.H5Group(
+        {key: hdf5.H5Group({"table": hdf5.H5Dataset(arr)}, attrs)}))
+
+
 def save_dlc_table(fpath: str, xy: np.ndarray, likelihood: np.ndarray,
                    bodyparts: Sequence[str] = MARKERS,
                    scorer: str = DLC_SCORER, start_frame: int = 0):
     """Write a DLC-style prediction table, xy (n_frames, L, 2) and
-    likelihood (n_frames, L), as ``<fpath without extension>.csv``."""
+    likelihood (n_frames, L). A ``.h5`` path writes the ``.h5`` and the
+    ``.csv`` beside it (as JAX's ``save_dlc_table`` does); any other path
+    writes ``<fpath without extension>.csv`` alone."""
     n = xy.shape[0]
     data = np.concatenate([np.asarray(xy, np.float64),
                            np.asarray(likelihood, np.float64)[..., None]],
                           axis=2)
     cols = [(scorer, bp, c) for bp in bodyparts for c in XYL]
-    write_table(os.path.splitext(fpath)[0] + ".csv",
-                Table(np.arange(start_frame, start_frame + n), cols,
-                      data.reshape(n, -1), DLC_LEVELS))
+    table = Table(np.arange(start_frame, start_frame + n), cols,
+                  data.reshape(n, -1), DLC_LEVELS)
+    base, ext = os.path.splitext(fpath)
+    if ext == ".h5":
+        write_pandas_h5(fpath, table)
+    write_table(base + ".csv", table)
 
 
-def _no_h5(path: str):
-    raise NotImplementedError(
-        f"{path}: .h5 tables need an HDF5 reader, which this package does "
-        "not have; write the tables as .csv (the JAX package writes one "
-        "beside every .h5)")
+def h5_or_csv(fpath: str) -> Tuple[str, bool]:
+    """Which form of a table to read: (path, whether it is a ``.h5``). A
+    ``.h5`` path is read when its file exists, else the ``.csv`` beside it
+    (a ``.h5`` that exists and fails to read raises: no CSV hides a reader
+    fault); any other path as it is."""
+    base, ext = os.path.splitext(fpath)
+    if ext != ".h5":
+        return fpath, False
+    return (fpath, True) if os.path.exists(fpath) else (base + ".csv", False)
 
 
 def load_dlc_table(fpath: str) -> Table:
-    """Load a DLC table from its CSV form (a ``.h5`` path reads the
-    ``.csv`` beside it, and raises when there is none)."""
-    base, ext = os.path.splitext(fpath)
-    if ext == ".h5":
-        if not os.path.exists(base + ".csv"):
-            _no_h5(fpath)
-        fpath = base + ".csv"
-    return read_table(fpath, 3)
+    """Load a DLC table: a ``.h5`` that exists through
+    :func:`load_pandas_h5`, else the CSV (a ``.h5`` path whose file does not
+    exist reads the ``.csv`` beside it)."""
+    path, h5 = h5_or_csv(fpath)
+    return load_pandas_h5(path) if h5 else read_table(path, 3)
 
 
 def load_dlc_points(dlc_dir: str, n_cams: Optional[int] = None,
@@ -225,18 +333,16 @@ def load_dlc_points(dlc_dir: str, n_cams: Optional[int] = None,
 
     Returns (xy (n_frames, C, L, 2), likelihood (n_frames, C, L),
     bodyparts). Table rows are aligned on the frame index (missing frames
-    NaN / likelihood 0). CSV-only directories go through the threaded C++
-    reader (``native.load_tables``, float32 values; it raises when it
-    cannot be built); with ``use_native=False``, or beside ``.h5`` tables
-    (which the JAX package reads exactly instead of its CSV tables),
-    through the exact numpy reader."""
-    paths = sorted(glob(os.path.join(dlc_dir, "*.csv")))
-    h5 = sorted(glob(os.path.join(dlc_dir, "*.h5")))
-    if not paths and h5:
-        _no_h5(h5[0])
+    NaN / likelihood 0). The directory's ``.h5`` tables where it holds any
+    (read exactly), else its CSV tables: through the threaded C++ reader
+    (``native.load_tables``, float32 values; it raises when it cannot be
+    built), or with ``use_native=False`` through the exact numpy
+    reader."""
+    paths = sorted(glob(os.path.join(dlc_dir, "*.h5"))) \
+        or sorted(glob(os.path.join(dlc_dir, "*.csv")))
     if n_cams is not None:
         assert len(paths) == n_cams, (len(paths), n_cams)
-    if use_native and paths and not h5:
+    if use_native and paths and paths[0].endswith(".csv"):
         return _load_dlc_points_native(paths)
     tables = [load_dlc_table(p) for p in paths]
     bodyparts = list(dict.fromkeys(c[1] for c in tables[0].columns))
@@ -246,10 +352,11 @@ def load_dlc_points(dlc_dir: str, n_cams: Optional[int] = None,
     lik = np.zeros((n_frames, C, L))
     for c, t in enumerate(tables):
         col = {k[1:]: j for j, k in enumerate(t.columns)}
+        idx = t.index.astype(int)
         for l, bp in enumerate(bodyparts):
-            xy[t.index, c, l, 0] = t.values[:, col[(bp, "x")]]
-            xy[t.index, c, l, 1] = t.values[:, col[(bp, "y")]]
-            lik[t.index, c, l] = t.values[:, col[(bp, "likelihood")]]
+            xy[idx, c, l, 0] = t.values[:, col[(bp, "x")]]
+            xy[idx, c, l, 1] = t.values[:, col[(bp, "y")]]
+            lik[idx, c, l] = t.values[:, col[(bp, "likelihood")]]
     return xy, lik, bodyparts
 
 
@@ -332,12 +439,8 @@ def save_3d_cheetah_as_2d(positions_3d_arr: Sequence[np.ndarray],
 
 
 def load_reprojection_table(fpath: str) -> Table:
-    """A ``cam<i>_<name>.csv`` reprojection table (2-level header); a
-    ``.h5`` path reads the ``.csv`` beside it, and raises when there is
-    none."""
-    base, ext = os.path.splitext(fpath)
-    if ext == ".h5":
-        if not os.path.exists(base + ".csv"):
-            _no_h5(fpath)
-        fpath = base + ".csv"
-    return read_table(fpath, 2)
+    """A ``cam<i>_<name>`` reprojection table (2-level columns): a ``.h5``
+    that exists through :func:`load_pandas_h5`, else the CSV (a ``.h5``
+    path whose file does not exist reads the ``.csv`` beside it)."""
+    path, h5 = h5_or_csv(fpath)
+    return load_pandas_h5(path) if h5 else read_table(path, 2)

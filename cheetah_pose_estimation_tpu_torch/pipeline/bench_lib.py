@@ -1,8 +1,9 @@
 """Bench problem building and scoring.
 
 Port of ``cheetah_pose_estimation_tpu/pipeline/bench_lib.py``: batched
-monocular default-mode problems over procedural gallops (the fallback of
-``load_reference_trajectories`` when the reference test set is absent),
+monocular default-mode problems over the ground-truth trajectories of
+``load_reference_trajectories`` (the reference test set's shipped solutions
+where the tree is present, ``REF_TEST_SET``, else procedural gallops),
 the physics stage's problems (``build_physics_batch``), the multi-device dry run's
 problems (``build_dryrun_problems``), the per-trial quality metrics, the trials' names (``reference_trial_paths``) and the
 bench's ground-plane depth anchor (``make_anchor_polish``). Problem
@@ -17,7 +18,10 @@ priors trained on it say nothing about AcinoSet.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import glob
+import os
+import pickle
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,25 +37,75 @@ from ..solver import kinematic as kin
 from ..utils.device import DeviceLike
 from . import initialization as init
 
+# the reference's shipped test set (its ``data/test_set``: per trial the
+# solved ``fte_kinematic`` and ``fte_kinetic_*`` pickles, the force-plate
+# trials under ``kinetic_dataset``), which is not in the repository
+REF_TEST_SET = os.environ.get("CHEETAH_REFERENCE_TEST_SET",
+                              os.path.join(".", "data", "test_set"))
+
 # seeds of the procedural prior-training and validation tables (the bench
 # trials use seeds 0-9)
 TRAIN_SEEDS = tuple(range(100, 140))
 VAL_SEEDS = tuple(range(200, 210))
 
 
-def load_reference_trajectories(max_trials: Optional[int] = None):
-    """(q, subject_name, fps) tuples of the procedural gallops (the JAX
-    package's fallback when the reference test set is absent)."""
-    out = [(syn.gallop_trajectory(40 + 2 * i, seed=i), "acinoset", 120.0)
-           for i in range(10)]
+def _fps_for(path: str) -> float:
+    if "2019" in path:
+        return 120.0
+    if "2017" in path:
+        return 90.0
+    return 200.0
+
+
+def _subject_for(path: str) -> str:
+    for name in ("jules", "phantom", "shiraz", "arabia"):
+        if name in path:
+            return name
+    return "acinoset"
+
+
+def _solution_paths() -> List[str]:
+    """The test set's multi-view ``fte_kinematic/fte.pickle`` files,
+    sorted (none without the tree)."""
+    return sorted(glob.glob(os.path.join(
+        REF_TEST_SET, "*", "**", "fte_kinematic", "fte.pickle"),
+        recursive=True))
+
+
+def load_reference_trajectories(max_trials: Optional[int] = None,
+                                include_kinetic: bool = False):
+    """(q, subject_name, fps) tuples (JAX ``bench_lib.py:46-70``): from the
+    reference test set's shipped ``fte.pickle`` files where the tree is
+    present (``REF_TEST_SET``), each trial's physics-based solution
+    (``fte_kinetic_*``) before its multi-view one (``fte_kinematic``;
+    always with ``CHEETAH_GT_KINEMATIC=1``), the force-plate trials only
+    with ``include_kinetic``; else the 10 procedural gallops."""
+    out = []
+    for p in _solution_paths():
+        if not include_kinetic and "kinetic_dataset" in p:
+            continue
+        kin_p = sorted(glob.glob(os.path.join(
+            os.path.dirname(os.path.dirname(p)), "fte_kinetic_*",
+            "fte.pickle")))
+        if os.environ.get("CHEETAH_GT_KINEMATIC") == "1":
+            kin_p = []
+        with open(kin_p[0] if kin_p else p, "rb") as f:
+            q = pickle.load(f)["q"]
+        out.append((np.asarray(q), _subject_for(p), _fps_for(p)))
+    if not out:
+        out = [(syn.gallop_trajectory(40 + 2 * i, seed=i), "acinoset", 120.0)
+               for i in range(10)]
     return out[:max_trials] if max_trials else out
 
 
 def reference_trial_paths(max_trials: Optional[int] = None):
-    """Trial names in the order of :func:`load_reference_trajectories`
-    (JAX ``bench_lib.py:76-93``): without the reference test set, which
-    the port does not read, ``synthetic_gallop_{i}``."""
-    out = [f"synthetic_gallop_{i}" for i in range(10)]
+    """Trial directories, relative to the test set, in the order of
+    :func:`load_reference_trajectories` (JAX ``bench_lib.py:76-93``); without
+    the tree ``synthetic_gallop_{i}``."""
+    out = [os.path.relpath(os.path.dirname(os.path.dirname(p)), REF_TEST_SET)
+           for p in _solution_paths() if "kinetic_dataset" not in p]
+    if not out:
+        out = [f"synthetic_gallop_{i}" for i in range(10)]
     return out[:max_trials] if max_trials else out
 
 

@@ -8,8 +8,10 @@ argmin-window stance placement, leading/trailing limb assignment, and the
 and a quadratic-spline Fx per detected stance (``synth_grf_data``), and the
 per-frame profiles the physics-based mode fixes (``get_grf_profile``).
 Foot kinematics are a forward-mode derivative of the feet's positions in
-float64 on the host. The force-plate tables are the CSV form
-(``grf_io``).
+float64 on the host. The force-plate tables (``grf_io``) are read in
+either form (``.h5`` first, as JAX reads them) and written as CSV only: the
+JAX package writes a ``.h5`` beside each, but the JAX references of the
+port's trees were solved on CSV-only trees.
 """
 from __future__ import annotations
 
@@ -234,8 +236,9 @@ def get_grf_profile(params_total_length: int, data_dir: str,
                     synthetic_data: bool = True) -> Tuple[Dict, Dict]:
     """Per-frame (GRFz, GRFxy-polygon) profiles of each foot in body-weight
     units, from the force-plate table of ``data_dir/grf``: the synthesized
-    one (``data_synth.csv``, frames as written) or the measured one
-    (``data.csv`` of a force-plate trial: 3500 Hz resampled to 200 Hz by a
+    one (``data_synth.h5``, frames as written) or the measured one
+    (``data.h5`` of a force-plate trial, each read from its ``.csv`` where
+    the ``.h5`` does not exist: 3500 Hz resampled to 200 Hz by a
     2/35 polyphase filter, the mean of the first 500 samples removed,
     scaled by ``scale_forces_by``, Fx and Fy signed by ``direction``). A
     foot's force counts on the frames of its first stance; its horizontal
@@ -244,7 +247,7 @@ def get_grf_profile(params_total_length: int, data_dir: str,
     from scipy import signal
 
     grf = grf_io.load_force_plate_df(os.path.join(
-        data_dir, "grf", "data_synth.csv" if synthetic_data else "data.csv"))
+        data_dir, "grf", "data_synth.h5" if synthetic_data else "data.h5"))
     meta_path = (os.path.join(data_dir, "grf", "autogen-contact.json")
                  if synthetic_data
                  else os.path.join(metadata_dir, "metadata.json"))

@@ -68,7 +68,7 @@ def _default_data_driven_dataset() -> str:
     """Training table of the learned priors: ``CHEETAH_DATA_DRIVEN_DATASET``,
     else ``./models/data-driven/dataset_full_pose.h5`` or ``.csv`` (the
     reference's location). Without any of them the ``.h5`` path, which
-    raises when read (only the CSV form is read)."""
+    raises when read."""
     cands = [os.environ.get("CHEETAH_DATA_DRIVEN_DATASET"),
              os.path.join(".", "models", "data-driven",
                           "dataset_full_pose.h5"),

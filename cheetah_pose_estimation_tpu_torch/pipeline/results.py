@@ -44,8 +44,7 @@ def reprojection_errors(fte_dir: str, hand_labeled_dir: str
                         ) -> Dict[str, float]:
     """Pixel error statistics of the saved reprojections ``cam*_fte.csv``
     in ``fte_dir`` against the hand labels of the same camera in
-    ``hand_labeled_dir`` (``cam<i>.h5``, read through the ``.csv`` beside
-    it, or ``cam<i>.csv``), over the frames both tables hold: mean,
+    ``hand_labeled_dir`` (``cam<i>.h5``, else ``cam<i>.csv``), over the frames both tables hold: mean,
     median, std and count of the finite per-marker errors (NaN and a count
     of 0 when there are none)."""
     errs: List[float] = []

@@ -81,6 +81,7 @@ from ..utils.device import DeviceLike, resolve_device
 from . import contacts as contacts_mod
 from . import estimator as est_mod
 from . import metrics as metrics_mod
+from .bench_lib import REF_TEST_SET
 
 # the reference's 10-trial monocular AcinoSet test set
 TEST_SET: Tuple[Tuple[str, str, str], ...] = (
@@ -108,13 +109,27 @@ KINETIC_SET: Tuple[Tuple[str, str, str], ...] = (
 )
 
 
-def _reference_gt_trajectory(n_frames: int, seed: int,
-                             fps: float = 120.0) -> np.ndarray:
-    """Ground-truth q of a synthetic trial: the procedural gallop of
-    ``n_frames`` at ``fps`` (the reference's shipped solutions, which the
-    JAX package reads first where they exist, are not in the
+def _reference_gt_trajectory(date: str, cheetah: str, trial_name: str,
+                             fallback_frames: int, fallback_seed: int,
+                             fallback_fps: float = 120.0) -> np.ndarray:
+    """Ground-truth q of a synthetic trial (JAX ``run_dataset.py:71-89``):
+    the reference test set's shipped physics-based solution of the trial
+    (``REF_TEST_SET/<date>/<cheetah>/<trial>/fte_kinetic_*``), else its
+    multi-view one (``fte_kinematic``), else the procedural gallop of
+    ``fallback_frames`` at ``fallback_fps`` (the tree is not in the
     repository)."""
-    return syn.gallop_trajectory(n_frames, fps=fps, seed=seed)
+    from glob import glob
+
+    trial_dir = os.path.join(REF_TEST_SET, date, cheetah, trial_name)
+    cands = sorted(glob(os.path.join(trial_dir, "fte_kinetic_*",
+                                     "fte.pickle")))
+    cands.append(os.path.join(trial_dir, "fte_kinematic", "fte.pickle"))
+    for p in cands:
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                return pickle.load(f)["q"]
+    return syn.gallop_trajectory(fallback_frames, fps=fallback_fps,
+                                 seed=fallback_seed)
 
 
 def kinetic_path(cheetah: str, date: str, trial: str) -> str:
@@ -128,14 +143,16 @@ def materialize_synthetic_testset(root_dir: str, n_cams: int = 6,
                                   occlusion_rate: float = 2.0,
                                   confusion_rate: float = 1.2) -> List[str]:
     """Write an AcinoSet-style directory tree for every test trial,
-    rendered from its ground-truth trajectory through a ring of fisheye
+    rendered from its ground-truth trajectory (``_reference_gt_trajectory``)
+    through a ring of fisheye
     cameras with the correlated DLC failure model
     (``synthetic.corrupt_dlc``), plus ``synthetic_gt.pickle`` (q and
     markers) for scoring against the truth. Host work in float64."""
     made = []
     for i, (cheetah, date, trial_name) in enumerate(TEST_SET):
         data_path = os.path.join(date, cheetah, trial_name)
-        q_gt = _reference_gt_trajectory(40 + 2 * i, i)
+        q_gt = _reference_gt_trajectory(date, cheetah, trial_name,
+                                        40 + 2 * i, i)
         subject = params_mod.get_subject(cheetah)
         fps = 120.0 if "2019" in date else 90.0
         markers = syn.fk_markers_np(q_gt, subject)
@@ -158,15 +175,19 @@ def materialize_synthetic_testset(root_dir: str, n_cams: int = 6,
 
 def materialize_synthetic_kinetic_testset(root_dir: str, n_cams: int = 4,
                                           seed: int = 100) -> List[str]:
-    """Write synthetic copies of the 5 force-plate trials: 50-frame
-    procedural gallops at 200 fps seen by ``n_cams`` pinhole cameras 6 m
+    """Write synthetic copies of the 5 force-plate trials: their
+    ground-truth trajectories (``_reference_gt_trajectory``: without the
+    reference test set, 50-frame procedural gallops) at 200 fps seen by
+    ``n_cams`` pinhole cameras 6 m
     out (the 2009 kinetic-dataset rig), DLC noise 2 px and 1 % outliers,
     monocular camera 0, plus ``synthetic_gt.pickle``. Host work in
     float64."""
     made = []
     for i, (cheetah, date, trial) in enumerate(KINETIC_SET):
         data_path = kinetic_path(cheetah, date, trial)
-        q_gt = _reference_gt_trajectory(50, seed + i, fps=200.0)
+        q_gt = _reference_gt_trajectory(
+            os.path.join("kinetic_dataset", date), cheetah, f"trial{trial}",
+            50, seed + i, fallback_fps=200.0)
         subject = params_mod.get_subject(cheetah)
         markers = syn.fk_markers_np(q_gt, subject)
         scene = syn.ring_cameras(markers.mean(axis=(0, 1)), n_cams=n_cams,

@@ -186,11 +186,11 @@ def _bootstrap(subject, ests, gp: kin.GMMPrior, dtype, dev):
 def _model_stats(gparams, mm, X: np.ndarray, dset: str) -> Dict[str, float]:
     """The statistics a grid row carries: the AR model's non-zero count
     and train/validation RMSE, the GMM's train and validation mean
-    log-likelihood per sample (NaN without ``validation_dataset.csv``
-    beside the training table)."""
+    log-likelihood per sample (NaN without ``validation_dataset.h5`` or
+    its ``.csv`` beside the training table)."""
     try:
         Xv = prior_ds.load_pose_dataset(os.path.join(
-            os.path.dirname(dset), "validation_dataset.csv")).data[:, 6:28]
+            os.path.dirname(dset), "validation_dataset.h5")).data[:, 6:28]
         gval = gmm_mod.score(gparams, Xv)
     except (OSError, ValueError):
         gval = float("nan")
@@ -746,7 +746,8 @@ def model_selection_analysis(data_driven_dataset: Optional[str] = None,
                              out_dir: Optional[str] = None,
                              device: DeviceLike = None) -> Dict:
     """Model-level hyper-parameter curves on the training table
-    ``data_driven_dataset`` and ``validation_dataset.csv`` beside it: the
+    ``data_driven_dataset`` and ``validation_dataset.h5`` (or its ``.csv``)
+    beside it: the
     GMM's train and validation mean log-likelihood per sample for each
     component count (fitted without the cache), then the AR model's train
     and validation RMSE and non-zero coefficient count for each window
@@ -757,7 +758,7 @@ def model_selection_analysis(data_driven_dataset: Optional[str] = None,
     dset = data_driven_dataset or est_mod._default_data_driven_dataset()
     X = prior_ds.load_pose_dataset(dset).data[:, 6:28]
     Xv = prior_ds.load_pose_dataset(os.path.join(
-        os.path.dirname(dset), "validation_dataset.csv")).data[:, 6:28]
+        os.path.dirname(dset), "validation_dataset.h5")).data[:, 6:28]
     out: Dict[str, List[float]] = {
         "gmm_train_likelihood": [], "gmm_validation_likelihood": [],
         "lr_train_rmse": [], "lr_validation_rmse": [], "lr_non_zeros": []}

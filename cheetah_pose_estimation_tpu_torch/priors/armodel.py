@@ -142,8 +142,8 @@ def train_motion_model(dataset: Union[str, ds.PoseTable],
     a CSV path (as the JAX function takes) or a
     :class:`~.dataset.PoseTable`. Each target frame is regressed on the
     ``window_size`` frames ``window_time`` apart before it.
-    ``validation`` defaults to ``validation_dataset.csv`` beside a training
-    path. Raises on non-finite coefficients.
+    ``validation`` defaults to ``validation_dataset.h5`` beside a training
+    path (its ``.csv`` where the ``.h5`` does not exist). Raises on non-finite coefficients.
 
     ``pose_model`` (a :class:`~.pca.PoseModel`): the rows of both tables
     go through ``pose_model.project`` before the windows, so the model
@@ -159,7 +159,7 @@ def train_motion_model(dataset: Union[str, ds.PoseTable],
             raise ValueError("a validation table is needed when the training "
                              "table is passed as arrays")
         validation = os.path.join(os.path.dirname(dataset),
-                                  "validation_dataset.csv")
+                                  "validation_dataset.h5")
 
     def rows(src):
         tab = _table(src)

@@ -3,8 +3,9 @@
 Port of ``cheetah_pose_estimation_tpu/priors/dataset.py``. A pose table is
 28 pose columns (``POSE_COLUMNS``) of concatenated segments, each segment
 delimited by an index that resets to 0. The JAX loader reads it with
-pandas; here the CSV form is read and written with numpy (the port runs
-without pandas), and the ``.h5`` form is not read yet.
+pandas; here the ``.h5`` form (pandas' PyTables tables, as the reference
+ships ``dataset_full_pose.h5``) through ``data/io.load_pandas_h5`` and the
+CSV form with numpy (the port runs without pandas).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import List, NamedTuple, Tuple
 
 import numpy as np
 
+from ..data import io
 from ..data.io import csv_float
 
 POSE_COLUMNS = [
@@ -34,11 +36,21 @@ class PoseTable(NamedTuple):
 
 
 def load_pose_dataset(path: str) -> PoseTable:
-    """Read a pose table written as CSV (a header row, then the index column
-    and the pose columns, as ``pandas.DataFrame.to_csv`` writes them)."""
+    """Read a pose table (JAX ``dataset.py:27-41``): a ``.h5`` (pandas'
+    HDF5 "table" or "fixed" format) through ``data/io.load_pandas_h5``, or
+    a CSV (a header row, then the index column and the pose columns, as
+    ``pandas.DataFrame.to_csv`` writes them). A ``.h5`` path whose file does
+    not exist reads the ``.csv`` beside it; one that exists and fails to
+    read raises."""
+    path, h5 = io.h5_or_csv(path)
+    if h5:
+        t = io.load_pandas_h5(path)
+        return PoseTable(index=np.asarray(t.index, np.int64),
+                         data=np.asarray(t.values, np.float64),
+                         columns=tuple(str(c[0]) for c in t.columns))
     if os.path.splitext(path)[1] != ".csv":
         raise NotImplementedError(
-            f"{path}: only the CSV form of a pose dataset is read")
+            f"{path}: a pose dataset is read from .h5 or .csv")
     with open(path, encoding="utf-8") as f:
         header = f.readline().rstrip("\r\n").split(",")
     rows = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float64,
@@ -51,8 +63,16 @@ def save_pose_dataset(path: str, table: PoseTable) -> None:
     """Write a pose table as CSV, as ``pandas.DataFrame.to_csv`` writes the
     JAX package's frame (a header row with an empty first field, then the
     index and the pose columns; floats as ``repr``), so both packages read
-    it."""
+    it. A ``.h5`` path writes the ``.h5`` in pandas' "table" format
+    (``data/io.write_pandas_h5``) and the ``.csv`` beside it."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    base, ext = os.path.splitext(path)
+    if ext == ".h5":
+        io.write_pandas_h5(path, io.Table(
+            np.asarray(table.index, np.int64),
+            [(c,) for c in table.columns],
+            np.asarray(table.data, np.float64), ("",)))
+        path = base + ".csv"
     with open(path, "w", encoding="utf-8", newline="") as f:
         f.write(",".join([""] + list(table.columns)) + "\n")
         for i, row in zip(table.index, np.asarray(table.data, np.float64)):

@@ -282,6 +282,23 @@ Phases (any failure exits nonzero):
    ``REST_SHAPES`` (the line-scan's 7x60 only where the prior is
    accepted). The kernel against its plain version on the sharded
    example's systems (lam = 1e-2, rel error <= 7e-4).
+19. h5 — the port's HDF5 reader and writer (``data/hdf5``), ``grf_parity``
+   and the reference-tree loaders (``phase_h5``) against
+   ``tests/data/jax_h5_f64.json``: every fixture of ``tests/data/h5/``
+   read as h5py and the JAX readers read it, bit for bit; phase 9's tree
+   converted to ``.h5`` by the port's writer and read as ``.h5``, as exact
+   CSV and by the C++ reader (times printed; the first two equal bit for
+   bit); counted as the phase's main path, the first trial's multi-view
+   solve (``estimate_kinematics``, the kernel at 1x40) from its
+   ``.h5``-only copy, its inputs equal bit for bit to those of the same
+   trial read exactly from CSV and its final objective within 1e-6 of that
+   run's; phase 9's pose table as ``.h5`` equal to its CSV read; a measured
+   force-plate table in both forms through ``contacts.get_grf_profile``,
+   equal profiles; ``grf_parity`` in float64 on the card on
+   ``write_reference_tree``'s tree, every row within 1e-6 relative (1e-9
+   absolute) of JAX float64's; ``load_reference_trajectories``,
+   ``reference_trial_paths`` and ``_reference_gt_trajectory`` on that tree
+   equal to the pickled q and to JAX's reads.
 
 Before the last two lines: a JSON object with the kernel's launches (in all
 and per path and shape), error, times and bound (at 10x64, and per shape),
@@ -4617,6 +4634,431 @@ def phase_rest(dev, results, ref, root):
     return by_shape, out["kernel"]["rel_err"], out["kernel"]["max_abs_err"]
 
 
+# phase 19: the port's HDF5 reader and writer, grf_parity and the
+# reference-tree loaders. tests/data/jax_h5_reference.py imports
+# write_reference_tree and array_digest.
+H5_FIXTURES = os.path.join(HERE, "tests", "data", "h5")
+REF_TREE_FRAMES = 16
+TOL_GRF_PARITY = 1e-6       # grf_parity rows against JAX float64, relative
+TOL_GRF_PARITY_ABS = 1e-9   # ... absolute, body weights, near zero
+TOL_H5_OBJ = 1e-6           # phase 19's .h5 and exact CSV solves, relative
+
+
+def write_reference_tree(root, n_frames=REF_TREE_FRAMES, seed=0):
+    """A small tree in the layout of the reference's shipped solutions
+    (numpy and pickle only): under ``root/kinetic_dataset`` the first two
+    force-plate trials, each with ``fte_kinetic/fte.pickle`` (q, tau per
+    motor, start_frame), ``fte_kinetic/cheetah.pickle`` (links whose foot
+    nodes carry GRFz (N,1) and GRFxy (N,1,4)) and ``fte_kinematic/
+    fte.pickle``; under ``root`` the first two test trials, the first with
+    ``fte_kinematic`` and ``fte_kinetic_2``, the second with
+    ``fte_kinematic`` alone. The q are procedural gallops (200 fps on the
+    force-plate trials, each solution its own seed), the forces sine-lobe
+    stances per foot with flight frames between, the torques normal
+    noise. Returns {trial directory
+    relative to root: the q of its physics-based solution, else its
+    multi-view one}."""
+    import pickle
+
+    from cheetah_pose_estimation_tpu_torch.data import synthetic as syn
+    from cheetah_pose_estimation_tpu_torch.dynamics.eom import (FOOT_NAMES,
+                                                               TORQUE_MAP)
+    from cheetah_pose_estimation_tpu_torch.pipeline.run_dataset import (
+        KINETIC_SET, TEST_SET)
+
+    rng = np.random.default_rng(seed)
+    motors = {}
+    for nm in TORQUE_MAP.names:
+        motor = nm.rsplit(":", 1)[0]
+        motors[motor] = motors.get(motor, 0) + 1
+    t = np.arange(n_frames) / n_frames
+
+    def dump(path, obj):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+
+    def gallop(fps):
+        return syn.gallop_trajectory(n_frames, fps=fps,
+                                     seed=int(rng.integers(1 << 16)))
+
+    out = {}
+    for cheetah, date, trial in KINETIC_SET[:2]:
+        rel = os.path.join("kinetic_dataset", date, cheetah, f"trial{trial}")
+        q = gallop(200.0)
+        tau = {m: 0.2 * rng.normal(size=(n_frames, k))
+               for m, k in motors.items()}
+        # front feet near phase 0, back feet near phase pi: a third of
+        # the frames in flight
+        gz = np.stack([2.4 * np.maximum(0.0, np.sin(
+            2 * np.pi * t + ph) - 0.5) for ph in (0.0, 0.6, np.pi, 3.7)],
+            axis=1)
+        gxy = 0.1 * rng.uniform(size=(n_frames, 4, 4)) * (gz > 0)[..., None]
+        links = [{"name": "base", "nodes": ["base", {"name": "base_com"}]}]
+        links += [{"name": foot[:3], "nodes": [
+            {"name": foot, "GRFz": gz[:, f, None],
+             "GRFxy": gxy[:, f, None, :]}]}
+            for f, foot in enumerate(FOOT_NAMES)]
+        dump(os.path.join(root, rel, "fte_kinetic", "fte.pickle"),
+             {"q": q, "tau": tau, "start_frame": 3})
+        dump(os.path.join(root, rel, "fte_kinetic", "cheetah.pickle"),
+             {"links": links})
+        dump(os.path.join(root, rel, "fte_kinematic", "fte.pickle"),
+             {"q": gallop(200.0), "start_frame": 3})
+        out[rel] = q
+    for i, (cheetah, date, trial) in enumerate(TEST_SET[:2]):
+        rel = os.path.join(date, cheetah, trial)
+        q = gallop(90.0)
+        dump(os.path.join(root, rel, "fte_kinematic", "fte.pickle"),
+             {"q": q})
+        if i == 0:
+            q = gallop(90.0)
+            dump(os.path.join(root, rel, "fte_kinetic_2", "fte.pickle"),
+                 {"q": q})
+        out[rel] = q
+    return out
+
+
+def array_digest(arr):
+    """Bit-level digest of an array: its shape, each field's dtype (or the
+    dtype) and the sha256 of the fields' bytes, field after field, each in
+    C order (so two reads that lay a compound out differently agree when
+    every field holds the same bytes)."""
+    import hashlib
+
+    arr = np.asarray(arr)
+    names = arr.dtype.names or (None,)
+    h = hashlib.sha256()
+    kinds = []
+    for n in names:
+        a = np.ascontiguousarray(arr if n is None else arr[n])
+        h.update(a.tobytes())
+        kinds.append(a.dtype.str if a.dtype.subdtype is None
+                     else a.dtype.subdtype[0].str)
+    return {"shape": list(arr.shape), "dtypes": kinds,
+            "sha256": h.hexdigest()}
+
+
+def table_digest(index, columns, values):
+    """Digest of a table read as pandas reads it: index, column labels
+    (as lists of str) and values, each bit for bit."""
+    return {"index": array_digest(np.asarray(index)),
+            "columns": [[str(x) for x in c] for c in columns],
+            "values": array_digest(np.asarray(values))}
+
+
+def h5_fixture_check(ref):
+    """The port's reader on every fixture of ``tests/data/h5/`` against
+    ``ref`` (``tests/data/jax_h5_f64.json``'s ``fixtures``): each object's
+    kind, each attribute and each dataset as h5py read them (a
+    variable-length string attribute must raise ``NotImplementedError``
+    naming it), the pandas tables as the JAX reader read them
+    (``load_pandas_h5``), the force plates as JAX's ``grf_io`` read them;
+    all bit for bit. Returns (per-file read seconds, failures)."""
+    from cheetah_pose_estimation_tpu_torch.data import hdf5
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+    from cheetah_pose_estimation_tpu_torch.pipeline import grf_io
+
+    secs, bad = {}, []
+    for name, r in ref.items():
+        path = os.path.join(H5_FIXTURES, name)
+        t0 = time.perf_counter()
+        with hdf5.File(path) as f:
+            for opath, o in r["objects"].items():
+                obj = f.root if opath == "/" else f[opath]
+                kind = "dataset" if isinstance(obj, hdf5.Dataset) \
+                    else "group"
+                if kind != o["kind"] or sorted(obj.attrs.keys()) \
+                        != sorted(o["attrs"]):
+                    bad.append((name, opath, "kind or attribute names"))
+                    continue
+                for k, a in o["attrs"].items():
+                    if "str" in a:
+                        try:
+                            obj.attrs[k]
+                            bad.append((name, opath, k, "read a vlen str"))
+                        except NotImplementedError as e:
+                            if "variable-length" not in str(e):
+                                bad.append((name, opath, k, str(e)))
+                    elif array_digest(obj.attrs[k]) != a:
+                        bad.append((name, opath, k))
+                if kind == "dataset" and array_digest(obj[()]) != o["data"]:
+                    bad.append((name, opath, "data"))
+        if "table" in r:
+            t = dio.load_pandas_h5(path)
+            if table_digest(t.index, t.columns, t.values) != r["table"]:
+                bad.append((name, "load_pandas_h5"))
+        if "force_plates" in r:
+            fp = grf_io.load_force_plate_df(path)
+            if {str(k): array_digest(v) for k, v in fp.items()} \
+                    != r["force_plates"]:
+                bad.append((name, "load_force_plate_df"))
+        secs[name] = time.perf_counter() - t0
+    return secs, bad
+
+
+@contextlib.contextmanager
+def exact_dlc_reads():
+    """Within the block, ``data/io.load_dlc_points`` reads CSV tables
+    exactly (``use_native=False``), as the estimator does not ask."""
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+
+    load = dio.load_dlc_points
+    dio.load_dlc_points = lambda d, n_cams=None, use_native=True: load(
+        d, n_cams, use_native=False)
+    try:
+        yield
+    finally:
+        dio.load_dlc_points = load
+
+
+def force_plate_trial(data_dir, form, n_frames=50, seed=5):
+    """A measured force-plate table of two plates at 3500 Hz (the frames of
+    an ``n_frames`` trial at 200 Hz) as ``grf/data.<form>`` and the
+    ``metadata.json`` that places two feet's stances on them."""
+    from cheetah_pose_estimation_tpu_torch.pipeline import grf_io
+
+    rng = np.random.default_rng(seed)
+    n = n_frames * 35 // 2 + 40
+    t = np.arange(n) / 3500.0
+    frames = {p: np.stack([0.2 * np.sin(2 * np.pi * 3 * t + p),
+                           0.1 * np.cos(2 * np.pi * 2 * t),
+                           400.0 * np.maximum(0.0, np.sin(
+                               2 * np.pi * 4 * t - p))], axis=1)
+              + rng.normal(scale=2.0, size=(n, 3)) for p in (0, 1)}
+    grf_io.save_force_plate_df(os.path.join(data_dir, "grf", f"data.{form}"),
+                               frames)
+    with open(os.path.join(data_dir, "metadata.json"), "w") as f:
+        json.dump({"start_frame": 2, "contacts": {
+            "HFL_foot": [[5, 20, 1]], "HBR_foot": [[18, 40, 2]],
+            "HFR_foot": None}}, f)
+
+
+def grf_rows_agree(rows, ref_rows):
+    """The port's grf_parity rows against JAX float64's: the same trials,
+    the same counts, every value within 1e-6 relative (1e-9 body weights
+    absolute near zero), NaN where JAX's is. Returns the failures."""
+    bad = []
+    if [r["trial"] for r in rows] != [r["trial"] for r in ref_rows]:
+        return [("grf_parity trials", [r["trial"] for r in rows])]
+    for r, j in zip(rows, ref_rows):
+        for k, v in j.items():
+            a = r[k]
+            if isinstance(v, (str, int)) and not isinstance(v, bool) \
+                    and not isinstance(v, float):
+                ok = a == v
+            elif v is None:
+                ok = a != a
+            else:
+                ok = abs(a - v) <= TOL_GRF_PARITY * abs(v) \
+                    + TOL_GRF_PARITY_ABS
+            if not ok:
+                bad.append(("grf_parity", r["trial"], k, a, v))
+    return bad
+
+
+def phase_h5(dev, results, ref, root, dset):
+    """Phase 19: the HDF5 reader and writer, ``grf_parity`` and the
+    reference-tree loaders (``ref``: ``tests/data/jax_h5_f64.json``). The
+    fixtures (``h5_fixture_check``); phase 9's tree converted to ``.h5``
+    by the port's writer and read three ways (``.h5``, exact CSV, C++),
+    the first two equal bit for bit; counted as the main path, the serial
+    CLI's multi-view solve (``estimate_kinematics``, 1x40) of the first
+    trial from its ``.h5``-only copy, then from its CSV tables read
+    exactly: the same inputs bit for bit, final objectives within 1e-6;
+    phase 9's pose table written as ``.h5`` and read back equal to its CSV
+    read; a measured force-plate table in both forms through
+    ``contacts.get_grf_profile``: equal profiles; ``grf_parity`` in
+    float64 on the card on ``write_reference_tree``'s tree against JAX
+    float64's rows, and the loaders on that tree against the pickled q and
+    JAX's reads. Returns the kernel's launches per shape."""
+    import shutil
+    import tempfile
+    from glob import glob
+
+    from cheetah_pose_estimation_tpu_torch.data import io as dio
+    from cheetah_pose_estimation_tpu_torch.ops import cuda_banded
+    from cheetah_pose_estimation_tpu_torch.pipeline import (bench_lib,
+                                                            contacts,
+                                                            estimator,
+                                                            grf_parity,
+                                                            run_dataset)
+    from cheetah_pose_estimation_tpu_torch.priors import dataset
+
+    t_phase = time.perf_counter()
+    out, bad = {}, []
+    work = tempfile.mkdtemp(prefix="h5_")
+
+    # 1. the fixtures, bit for bit against h5py's and JAX's reads
+    secs, bad_f = h5_fixture_check(ref["fixtures"])
+    bad += bad_f
+    out["fixtures"] = {"files": len(secs), "read_s": sum(secs.values()),
+                       "failures": bad_f}
+    log(f"# h5: {len(secs)} fixtures read in {sum(secs.values()):.4f} s, "
+        f"every object, attribute and table as h5py and JAX read them: "
+        f"{'yes' if not bad_f else bad_f[:4]}")
+
+    # 2. phase 9's tree as .h5 (the port's writer), read three ways
+    h5root = os.path.join(work, "videos")
+    paths = [os.path.join(d, c, t) for c, d, t in run_dataset.TEST_SET]
+    t0 = time.perf_counter()
+    for p in paths:
+        shutil.copytree(os.path.join(root, p), os.path.join(h5root, p),
+                        ignore=shutil.ignore_patterns("*.csv"))
+        for csv in sorted(glob(os.path.join(root, p, "dlc", "*.csv"))):
+            dio.write_pandas_h5(os.path.join(
+                h5root, p, "dlc", os.path.basename(csv)[:-4] + ".h5"),
+                dio.load_dlc_table(csv))
+    read_s = {"convert": time.perf_counter() - t0, "h5": 0.0, "exact": 0.0,
+              "native": 0.0}
+    for p in paths:
+        t0 = time.perf_counter()
+        xh, lh, bh = dio.load_dlc_points(os.path.join(h5root, p, "dlc"))
+        t1 = time.perf_counter()
+        xe, le, be = dio.load_dlc_points(os.path.join(root, p, "dlc"),
+                                         use_native=False)
+        t2 = time.perf_counter()
+        dio.load_dlc_points(os.path.join(root, p, "dlc"))
+        t3 = time.perf_counter()
+        read_s["h5"] += t1 - t0
+        read_s["exact"] += t2 - t1
+        read_s["native"] += t3 - t2
+        if not (np.array_equal(xh, xe, equal_nan=True)
+                and np.array_equal(lh, le) and bh == be):
+            bad.append(("tree .h5 read", p))
+    out["tree_read_s"] = read_s
+    log(f"# h5: phase 9's tree ({len(paths)} trials, "
+        f"{6 * len(paths)} tables): written as .h5 in "
+        f"{read_s['convert']:.3f} s; read as .h5 {read_s['h5']:.4f} s, exact "
+        f"CSV {read_s['exact']:.4f} s, C++ {read_s['native']:.4f} s; "
+        f".h5 read equal to the exact CSV read bit for bit: "
+        f"{not any(b[0] == 'tree .h5 read' for b in bad)}")
+
+    # 3. main path (counted): the first trial's multi-view solve from its
+    # .h5-only copy; then from its CSV tables read exactly
+    p0, (cheetah, _, _) = paths[0], run_dataset.TEST_SET[0]
+    if glob(os.path.join(h5root, p0, "dlc", "*.csv")) \
+            or not glob(os.path.join(h5root, p0, "dlc", "*.h5")):
+        bad.append(("not an .h5-only trial", p0))
+    est_h5 = estimator.init_trajectory(h5root, p0, cheetah)
+    with exact_dlc_reads():
+        est_csv = estimator.init_trajectory(root, p0, cheetah)
+    same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in (
+        (est_h5.xy, est_csv.xy), (est_h5.likelihood, est_csv.likelihood),
+        (est_h5.data.meas, est_csv.data.meas),
+        (est_h5.data.weight, est_csv.data.weight)))
+    cuda_banded.reset_launches()
+    t0 = time.perf_counter()
+    ok_h5 = estimator.estimate_kinematics(est_h5, save=False, device=dev)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    by_shape = dict(cuda_banded.launches_by_shape)
+    ok_csv = estimator.estimate_kinematics(est_csv, save=False, device=dev)
+    gap = abs(est_h5.obj_cost - est_csv.obj_cost) / abs(est_csv.obj_cost)
+    out["trial"] = {"path": p0, "inputs_equal": same, "solve_s": solve_s,
+                    "obj_h5": est_h5.obj_cost, "obj_csv": est_csv.obj_cost,
+                    "rel_gap": gap, "launches": shape_keys(by_shape)}
+    log(f"# h5: {p0} from .h5 only (no CSV): inputs equal to the exact CSV "
+        f"read's bit for bit {same}; multi-view solve {solve_s:.3f} s, "
+        f"launches {shape_keys(by_shape)}; objective {est_h5.obj_cost!r} "
+        f"vs {est_csv.obj_cost!r} from the CSV (rel {gap:.3g}, bar "
+        f"{TOL_H5_OBJ:g})")
+    if not (same and ok_h5 and ok_csv and gap <= TOL_H5_OBJ
+            and by_shape.get((1, est_h5.data.meas.shape[0]), 0) > 0):
+        bad.append(("h5-only trial", out["trial"]))
+
+    # 4. the pose table and a force-plate table in both forms
+    tab = dataset.load_pose_dataset(dset)
+    h5_dset = os.path.join(work, "priors", "dataset_full_pose.h5")
+    dataset.save_pose_dataset(h5_dset, tab)
+    t0 = time.perf_counter()
+    tab_h5 = dataset.load_pose_dataset(h5_dset)
+    t1 = time.perf_counter()
+    dataset.load_pose_dataset(dset)
+    t2 = time.perf_counter()
+    pose_ok = (np.array_equal(tab_h5.index, tab.index)
+               and np.array_equal(tab_h5.data, tab.data)
+               and tab_h5.columns == tab.columns)
+    out["pose_table"] = {"rows": len(tab.index), "equal": pose_ok,
+                         "h5_read_s": t1 - t0, "csv_read_s": t2 - t1}
+    fp = {}
+    for form in ("h5", "csv"):
+        d = os.path.join(work, f"force_plate_{form}")
+        force_plate_trial(d, form)
+        fp[form] = contacts.get_grf_profile(
+            50, d, d, 1.0, 1.0 / 400.0, kinetic_dataset=True,
+            synthetic_data=False)
+    fp_ok = fp["h5"] == fp["csv"] and any(
+        any(v) for v in fp["h5"][0].values())
+    out["force_plate"] = {"equal": fp_ok}
+    log(f"# h5: pose table ({len(tab.index)} rows) as .h5 equal to its CSV "
+        f"read: {pose_ok} (read {t1 - t0:.4f} s, CSV {t2 - t1:.4f} s); "
+        f"measured force plates .h5 vs .csv through get_grf_profile: equal "
+        f"{fp_ok}")
+    if not (pose_ok and fp_ok):
+        bad.append(("pose table or force plates", pose_ok, fp_ok))
+
+    # 5. grf_parity in float64 on the card, and the reference-tree loaders
+    tree_root = os.path.join(work, "reference")
+    tree = write_reference_tree(tree_root)
+    t0 = time.perf_counter()
+    rows = grf_parity.grf_parity(
+        root=os.path.join(tree_root, "kinetic_dataset"), verbose=False,
+        device=dev)
+    torch.cuda.synchronize()
+    gp_s = time.perf_counter() - t0
+    bad_g = grf_rows_agree(rows, ref["grf_parity"]["rows"])
+    bad += bad_g
+    out["grf_parity"] = {"rows": rows, "s": gp_s, "failures": bad_g}
+    for r in rows:
+        log(f"# h5: grf_parity {r['trial']} ({gp_s:.3f} s for "
+            f"{len(rows)} trials): " + ", ".join(
+                f"{k} {r[k]:.6g}" for k in grf_parity.COLUMNS[2:]))
+    log(f"# h5 agree: grf_parity rows against JAX float64 within "
+        f"{TOL_GRF_PARITY:g} rel + {TOL_GRF_PARITY_ABS:g}: "
+        f"{'yes' if not bad_g else bad_g[:4]}")
+    saved = bench_lib.REF_TEST_SET, run_dataset.REF_TEST_SET
+    bench_lib.REF_TEST_SET = run_dataset.REF_TEST_SET = tree_root
+    try:
+        trajs = bench_lib.load_reference_trajectories()
+        names = bench_lib.reference_trial_paths()
+        kin_trajs = bench_lib.load_reference_trajectories(
+            include_kinetic=True)
+        gt = {}
+        for i, (c, d, t) in enumerate(run_dataset.TEST_SET[:3]):
+            gt["/".join((d, c, t))] = run_dataset._reference_gt_trajectory(
+                d, c, t, 40 + 2 * i, i)
+        for i, (c, d, t) in enumerate(run_dataset.KINETIC_SET[:3]):
+            kd = os.path.join("kinetic_dataset", d)
+            gt["/".join((kd, c, f"trial{t}"))] = \
+                run_dataset._reference_gt_trajectory(
+                    kd, c, f"trial{t}", 50, 100 + i, 200.0)
+    finally:
+        bench_lib.REF_TEST_SET, run_dataset.REF_TEST_SET = saved
+    jt = ref["ref_tree"]
+    loaders_ok = (
+        [[s, f, array_digest(q)] for q, s, f in trajs] == jt["trajectories"]
+        and [[s, f, array_digest(q)] for q, s, f in kin_trajs]
+        == jt["trajectories_kinetic"] and names == jt["trial_paths"]
+        and all(np.array_equal(q, tree[n]) for (q, _, _), n in
+                zip(trajs, names))
+        and {k: array_digest(v) for k, v in gt.items()} == jt["gt"])
+    out["loaders_equal"] = loaders_ok
+    log(f"# h5 agree: load_reference_trajectories ({len(trajs)} trials, "
+        f"{len(kin_trajs)} with the force-plate ones), reference_trial_paths "
+        f"{names}, _reference_gt_trajectory ({len(gt)} trials) equal to "
+        f"the pickled q and JAX's reads: {loaders_ok}")
+    if not loaders_ok:
+        bad.append(("reference-tree loaders", names))
+    shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"# h5: phase 19 wall {out['wall_s']:.2f} s")
+    results["h5"] = out
+    if bad:
+        raise AssertionError(f"phase 19 failed its checks: {bad[:6]}")
+    return by_shape
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -4715,6 +5157,10 @@ def main():
               encoding="utf-8") as f:
         rest_ref = json.load(f)
     rest_shapes, re_rel, re_abs = phase_rest(dev, results, rest_ref, root)
+    with open(os.path.join(HERE, "tests", "data", "jax_h5_f64.json"),
+              encoding="utf-8") as f:
+        h5_ref = json.load(f)
+    h5_shapes = phase_h5(dev, results, h5_ref, root, dset)
     worst_rel = max(worst_rel, phys_rel, cli_rel, kin_rel, an_rel, st_rel,
                     rs_rel, re_rel)
     worst_abs = max(worst_abs, phys_abs, cli_abs, kin_abs, an_abs, st_abs,
@@ -4734,7 +5180,7 @@ def main():
         + sum(acinoset_shapes.values()) + sum(analysis_shapes.values())
         + sum(studies_shapes.values()) + sum(options_shapes.values())
         + sum(dynamics_shapes.values()) + sum(responses_shapes.values())
-        + sum(rest_shapes.values()),
+        + sum(rest_shapes.values()) + sum(h5_shapes.values()),
         "launches_by_path": {"stage1": shape_keys(stage1_shapes),
                              "dd": shape_keys(dd_shapes),
                              "physics": shape_keys(physics_shapes),
@@ -4747,7 +5193,8 @@ def main():
                              "options": shape_keys(options_shapes),
                              "dynamics": shape_keys(dynamics_shapes),
                              "responses": shape_keys(responses_shapes),
-                             "rest": shape_keys(rest_shapes)},
+                             "rest": shape_keys(rest_shapes),
+                             "h5": shape_keys(h5_shapes)},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": main_shape["kernel_ms"],

@@ -3,20 +3,19 @@ not port: a walk of both packages' sources (top-level functions and
 classes, and the classes' public methods) finds no other JAX name that the
 port lacks.
 
-Not ported (ROADMAP "Do not port" and "Not queued"): the HDF5 reader
-``data/io.load_pandas_h5``, the Pallas module ``ops/pallas_banded`` (its
-kernel is ``csrc/banded_solve.cu``), the TPU backend crossover
+Not ported, and only TPU-specific code (ROADMAP "Do not port"): the
+Pallas module ``ops/pallas_banded`` (its kernel is
+``csrc/banded_solve.cu``), the TPU backend crossover
 ``parallel/batch.backend_for``, the TPU compile cache and host pinning of
-``utils/device``, ``utils/log`` and ``pipeline/grf_parity`` (it reads the
-reference tree).
+``utils/device`` and ``utils/log``.
 """
 import ast
 import os
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = ("data/io.load_pandas_h5", "ops/pallas_banded.",
-              "parallel/batch.backend_for", "utils/device.enable_compile_cache",
-              "utils/device.host_cpu", "utils/log.", "pipeline/grf_parity.")
+NOT_PORTED = ("ops/pallas_banded.", "parallel/batch.backend_for",
+              "utils/device.enable_compile_cache", "utils/device.host_cpu",
+              "utils/log.")
 
 
 def public_names(package: str) -> set:
@@ -57,3 +56,5 @@ def test_port_has_every_public_jax_name():
         assert not any(n.startswith(prefix) for n in port_names), prefix
     assert "native.load_tables" in port_names
     assert "parallel/batch.dryrun_multichip" in port_names
+    assert "data/io.load_pandas_h5" in port_names
+    assert "pipeline/grf_parity.grf_parity" in port_names

@@ -43,10 +43,18 @@ def test_force_plate_csv_is_the_jax_sibling(tmp_path):
 
 
 def test_force_plate_h5_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        tgrf.save_force_plate_df(str(tmp_path / "data.h5"), _frames())
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        tgrf.load_force_plate_df(str(tmp_path / "data.h5"))
+    """The ``.h5`` form is written (with its ``.csv``) and read back as
+    JAX reads it; a ``.h5`` that is not an HDF5 file raises, even with a
+    ``.csv`` beside it."""
+    tgrf.save_force_plate_df(str(tmp_path / "ok" / "data.h5"), _frames())
+    ja = jgrf.load_force_plate_df(str(tmp_path / "ok" / "data.h5"))
+    tb = tgrf.load_force_plate_df(str(tmp_path / "ok" / "data.h5"))
+    assert ja.keys() == tb.keys()
+    assert all(np.array_equal(ja[k], tb[k]) for k in ja)
+    tgrf.save_force_plate_df(str(tmp_path / "bad" / "data.csv"), _frames())
+    (tmp_path / "bad" / "data.h5").write_bytes(b"not hdf5")
+    with pytest.raises(ValueError, match="not an HDF5 file"):
+        tgrf.load_force_plate_df(str(tmp_path / "bad" / "data.h5"))
 
 
 def _contacts(tmp, roles, start=100, n=40, last_beyond=False):

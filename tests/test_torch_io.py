@@ -71,7 +71,7 @@ def test_dlc_points_across_packages(tmp_path):
         jio.save_dlc_table(str(tmp_path / "jax" / f"cam{c + 1}.h5"), xy, lik)
         tio.save_dlc_table(str(tmp_path / "port" / f"cam{c + 1}.csv"), xy,
                            lik)
-    # the JAX tree also holds .h5 tables; the port reads its .csv siblings
+    # the JAX tree also holds .h5 tables; the port reads them, as JAX does
     assert (tmp_path / "jax" / "cam1.h5").exists()
     pj = tio.load_dlc_points(str(tmp_path / "jax"), 3, use_native=False)
     jp = jio.load_dlc_points(str(tmp_path / "port"), 3, use_native=False)
@@ -85,12 +85,21 @@ def test_dlc_points_across_packages(tmp_path):
 
 
 def test_h5_only_directory_names_the_missing_reader(tmp_path):
+    """An ``.h5``-only directory (the JAX writer's table, no ``.csv``) reads
+    through the port's own HDF5 reader as JAX reads it; a ``.h5`` path with
+    neither form on disk names the missing file."""
     xy, lik = _tables(0)
     jio.save_dlc_table(str(tmp_path / "cam1.h5"), xy, lik, write_csv=False)
-    with pytest.raises(NotImplementedError, match="HDF5 reader"):
-        tio.load_dlc_points(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="HDF5 reader"):
-        tio.load_dlc_table(str(tmp_path / "cam1.h5"))
+    a = tio.load_dlc_points(str(tmp_path))
+    b = jio.load_dlc_points(str(tmp_path))
+    for x, y in zip(a[:2], b[:2]):
+        assert np.array_equal(x, y, equal_nan=True)
+    assert a[2] == list(b[2])
+    t = tio.load_dlc_table(str(tmp_path / "cam1.h5"))
+    assert np.array_equal(t.values, jio.load_dlc_table(
+        str(tmp_path / "cam1.h5")).to_numpy(), equal_nan=True)
+    with pytest.raises(FileNotFoundError, match="cam2.csv"):
+        tio.load_dlc_table(str(tmp_path / "cam2.h5"))
 
 
 def test_scene_and_metadata_json(tmp_path):

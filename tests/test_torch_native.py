@@ -122,9 +122,8 @@ def test_load_dlc_points_equals_jax_reads(trees, tree):
 
 def test_tree_with_h5_tables_reads_as_jax_does(tmp_path):
     """Beside ``.h5`` tables (a tree the JAX package wrote) JAX's default
-    read takes the ``.h5`` tables exactly, so the port's default read is
-    exact too (from their ``.csv`` siblings): float64 arrays equal to
-    JAX's."""
+    read takes the ``.h5`` tables exactly, so the port's default read does
+    too: float64 arrays equal to JAX's."""
     for c in range(2):
         xy, lik = _arrays(20 + c, n=30)
         jio.save_dlc_table(str(tmp_path / f"cam{c + 1}.h5"), xy, lik)
@@ -198,5 +197,5 @@ def test_load_reprojection_table(tmp_path):
             assert np.array_equal(np.isnan(t.values), np.isnan(jt.to_numpy()))
             assert np.allclose(t.values, jt.to_numpy(), rtol=4e-15, atol=0,
                                equal_nan=True)
-    with pytest.raises(NotImplementedError, match="HDF5 reader"):
+    with pytest.raises(FileNotFoundError, match="cam1_fte.csv"):
         tio.load_reprojection_table(str(tmp_path / "none" / "cam1_fte.h5"))

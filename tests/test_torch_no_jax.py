@@ -1,6 +1,7 @@
-"""The PyTorch port runs without JAX, pandas, matplotlib or the JAX
-package: in a fresh interpreter where importing ``jax``, ``jaxlib``,
-``pandas`` or ``matplotlib`` fails as on a machine without them, import
+"""The PyTorch port runs without JAX, pandas, matplotlib, h5py, PyTables
+or the JAX package: in a fresh interpreter where importing ``jax``,
+``jaxlib``, ``pandas``, ``matplotlib``, ``h5py`` or ``tables`` fails as on
+a machine without them, import
 the port, build and solve a 2-trial 16-frame problem on the CPU, train small priors and run the data-driven stage and
 then the physics stage on it with tiny schedules; render the first trial of the dataset CLI's synthetic test
 set (``--materialize_synthetic``) and run the CLI's ground-truth mode on it
@@ -20,8 +21,10 @@ remaining prior options (a PCA fit, a PCA-space AR model, a line-scan with
 a finish), the three response studies (the forced-vs-gated bench and a
 deadband row on two 16-frame trials) and the results layer
 (``compare_traj_error``, the power traces, plots that report False with
-matplotlib blocked too), the C++ DLC reader (``native/``), and the two
-examples (``examples/sharded_batch_torch.py`` on a 2-entry CPU mesh,
+matplotlib blocked too), the C++ DLC reader (``native/``), the HDF5
+reader and writer (an ``.h5``-only copy of the trial's tables, a pose
+table, ``grf_parity`` and the reference-tree loaders on a small tree in the
+reference's layout), and the two examples (``examples/sharded_batch_torch.py`` on a 2-entry CPU mesh,
 ``examples/single_trial_torch.py`` with tiny schedules); then check
 ``sys.modules``. No
 module of ``cheetah_pose_estimation_tpu`` may be loaded: the port keeps its
@@ -37,7 +40,8 @@ SCRIPT = textwrap.dedent("""
     import sys
     # as on a machine without them: importing raises ModuleNotFoundError,
     # importlib.util.find_spec returns None
-    for blocked in ("jax", "jaxlib", "pandas", "matplotlib"):
+    for blocked in ("jax", "jaxlib", "pandas", "matplotlib", "h5py",
+                    "tables"):
         sys.modules[blocked] = None
     import numpy as np
     import torch
@@ -255,6 +259,33 @@ SCRIPT = textwrap.dedent("""
     xe, _, _ = io.load_dlc_points(os.path.join(tmp, d, c, t, "dlc"), 6,
                                   use_native=False)
     assert 0 < np.nanmax(np.abs(xn - xe)) < 1e-3
+    # the HDF5 reader and writer (no h5py): the trial's tables as .h5 only,
+    # a pose table, grf_parity and the loaders on a reference-layout tree
+    import shutil as sh
+    h5dir = os.path.join(tmp, "h5only", "dlc")
+    os.makedirs(h5dir)
+    for k in range(6):
+        io.write_pandas_h5(os.path.join(h5dir, f"cam{k + 1}.h5"),
+                           io.load_dlc_table(os.path.join(
+                               tmp, d, c, t, "dlc", f"cam{k + 1}.csv")))
+    xh, _, _ = io.load_dlc_points(h5dir, 6)
+    assert np.array_equal(xh, xe, equal_nan=True)
+    dataset.save_pose_dataset(os.path.join(tmp, "pose.h5"), val)
+    assert np.array_equal(dataset.load_pose_dataset(
+        os.path.join(tmp, "pose.h5")).data, val.data)
+    import chip_smoke
+    from cheetah_pose_estimation_tpu_torch.pipeline import grf_parity
+    tree = chip_smoke.write_reference_tree(os.path.join(tmp, "reference"))
+    rows = grf_parity.grf_parity(root=os.path.join(
+        tmp, "reference", "kinetic_dataset"), verbose=False, device="cpu")
+    assert len(rows) == 2 and np.isfinite(rows[0]["gz_rmse_bw"])
+    from cheetah_pose_estimation_tpu_torch.pipeline import run_dataset as rd
+    bench_lib.REF_TEST_SET = rd.REF_TEST_SET = os.path.join(tmp, "reference")
+    names = bench_lib.reference_trial_paths()
+    assert names and set(names) <= set(tree)
+    c0, d0, t0 = rd.TEST_SET[0]
+    assert np.array_equal(rd._reference_gt_trajectory(d0, c0, t0, 40, 0),
+                          tree[os.path.join(d0, c0, t0)])
     import importlib.util
     def example(name):
         spec = importlib.util.spec_from_file_location(
@@ -271,7 +302,7 @@ SCRIPT = textwrap.dedent("""
         "data-driven", "single view"]
     bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "jaxlib", "pandas",
-                                         "matplotlib",
+                                         "matplotlib", "h5py", "tables",
                                          "cheetah_pose_estimation_tpu"))
     print("FORBIDDEN", bad)
     assert not bad, bad
